@@ -19,8 +19,33 @@ Phases, each of which raises on failure (exit code 1, no result line):
    through the kernels, with the launch counts of that run; then the same fit
    through the plain versions (``engine="scan"``) on the same hash family and
    draws.
-6. timings: CUDA-event medians of each kernel and its plain version at the
-   main path's shapes, beside the least time the card could take.
+6. single-sided insert: ``hash_histogram`` against its plain version, bit
+   for bit, at the classification path's full shape (n = 2^22 rows of
+   d = 9 features, augmented to 11 columns, R = 1024, p = 2), at ragged
+   shapes (p in {1, 2, 4, 8}, partial masks) and with int16/int8 outputs
+   that saturate.
+7. banked inserts: ``sketch_dataset_many(engine="kernel")``, paired
+   (R = 2048, p = 4) and single-sided (R = 1024, p = 2), over 16 tenants of
+   2^18 rows (the last 1000 short), with the launch counts of that build;
+   each slice against the lone kernel on that tenant and the whole bank
+   against the plain banked version, bit for bit.
+8. banked query: ``sketch_query_banked`` against its plain version, bit for
+   bit, on the 16-tenant bank for m in {272, 16, 32, 3168, 4096}, and on its
+   int16 and int8 copies.
+9. classification: ``classification.fit`` on ``make_classification(2^22,
+   9, margin 0.5)`` with R = 1024, p = 2 and 300 DFO steps, through the
+   kernels (with its launch counts) and through the plain versions on the
+   same draws (and through the kernels' plain versions, which must give the
+   same fit bit for bit); then ``erm.fit_surrogate`` for ``logistic`` (accuracy) and
+   ``kmeans`` (density gain over random directions) through the kernels.
+10. banked fit: ``regression.fit_many`` over 16 tenants of 2^18 rows, each
+    its own airfoil-matched draw, with the default configuration, through
+    the kernels (with its launch counts), through the kernels' plain
+    versions (which must give the same fit bit for bit) and through the
+    scan engine, on the same draws.
+11. timings: device time per launch of each of the six kernels and its
+    plain version at the shapes above, beside the least time the card could
+    take, and where the time of the three fits goes.
 
 The last two lines are the card (nvidia-smi's name and power limit) and
 ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
@@ -29,6 +54,8 @@ the repository beside this file; without either it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -47,6 +74,15 @@ PEAK_HBM_BYTES = 3.35e12
 # telemetry from one device, and the default StormRegressorConfig.
 N_ROWS = 1 << 22
 D_FEATURES, NOISE, CONDITION = 9, 0.3, 30.0
+
+# The single-sided path: the margin shapes of EXPERIMENTS.md's ERM table
+# (R = 1024, p = 2 for the margins, p = 4 for kmeans) at the stream's size.
+MARGIN = 0.5
+CLS_ROWS, CLS_PLANES, KMEANS_PLANES = 1024, 2, 4
+
+# The banked path: 16 tenants' streams of 2^18 rows (2^22 in all), the last
+# one short, each its own airfoil-matched draw.
+TENANTS, TENANT_ROWS, TENANT_SHORT = 16, 1 << 18, 1000
 
 
 def _log(*args) -> None:
@@ -84,9 +120,15 @@ def _device_events(prof):
             if getattr(e, "device_type", None) == DeviceType.CUDA]
 
 
+def _kernel_named(symbol: str, name: str) -> bool:
+    """Whether a profiler kernel name is the device function ``symbol``
+    (demangled ``ns::symbol<...>`` or mangled ``<len>symbol``)."""
+    return f"::{symbol}" in name or f"{len(symbol)}{symbol}" in name
+
+
 def _device_ms(fn, calls: int, torch, symbol=None):
-    """Device time per call of ``fn`` (only kernels whose name holds
-    ``symbol``, if given) from torch.profiler; None if it saw no device work."""
+    """Device time per call of ``fn`` (only the kernel ``symbol``, if given)
+    from torch.profiler; None if it saw no device work."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -96,12 +138,13 @@ def _device_ms(fn, calls: int, torch, symbol=None):
             fn()
         torch.cuda.synchronize()
     total = sum(us for name, us in _device_events(prof)
-                if symbol is None or symbol in name)
+                if symbol is None or _kernel_named(symbol, name))
     return total / calls / 1e3 if total > 0 else None
 
 
-def _fit_profile(fit, torch):
-    """Wall time, device busy ms and the kernels by device time of one fit."""
+def _fit_profile(label, fit, torch, symbols):
+    """Profile one fit and print its wall time, device busy share and the
+    device time of each of ``symbols`` and of the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -113,14 +156,47 @@ def _fit_profile(fit, torch):
     for name, us in _device_events(prof):
         by_name[name] = by_name.get(name, 0.0) + us / 1e3
     busy = sum(by_name.values())
+    if busy <= 0:
+        _log(f"[{label}] the profiler saw no device work ({wall:.3f} s wall)")
+        return
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    return (busy if busy > 0 else None), ranked, wall
+    top = ", ".join(f"{n[:40]} {t:.2f} ms" for n, t in ranked[:5])
+    own = ", ".join(
+        f"{sym} {sum(t for n, t in ranked if _kernel_named(sym, n)):.2f} ms"
+        for sym in symbols)
+    _log(f"[{label}] under the profiler: {wall * 1e3:.1f} ms wall, device "
+         f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%); {own}; "
+         f"top kernels: {top}")
 
 
 def _bound(bytes_moved: float, flops: float):
     by_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
     by_ops = flops / PEAK_FP32_FLOPS * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations"))
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route every kernel wrapper to its plain PyTorch version (``ref``):
+    a fit inside runs the kernels' arithmetic without the kernels, and
+    counts no launch."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sketch_query as query_kernel
+    from repro_torch.kernels import storm_sketch as insert_kernel
+
+    names = {insert_kernel: ("paired_hash_histogram", "hash_histogram",
+                             "paired_hash_histogram_banked",
+                             "hash_histogram_banked"),
+             query_kernel: ("sketch_query", "sketch_query_banked")}
+    saved = [(mod, name, getattr(mod, name))
+             for mod, group in names.items() for name in group]
+    for mod, name, _ in saved:
+        setattr(mod, name, getattr(ref, name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def main() -> int:
@@ -135,8 +211,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.core import baselines, lsh, regression
-    from repro_torch.core import dfo
+    from repro_torch.core import (baselines, classification, dfo, erm, losses,
+                                  lsh, regression)
+    from repro_torch.core import sketch as sketch_lib
     from repro_torch.data import datasets
     from repro_torch.device import generator, resolve_device
     from repro_torch.kernels import _build, ops, ref
@@ -170,7 +247,16 @@ def main() -> int:
                                   cfg.norm_slack)
     z = z.contiguous()
     ones = torch.ones(N_ROWS, device=dev)
-    errs = {"paired_hash_histogram": 0.0, "sketch_query": 0.0}
+    counters = {
+        "paired_hash_histogram": insert_kernel.paired_hash_histogram,
+        "sketch_query": query_kernel.sketch_query,
+        "hash_histogram": insert_kernel.hash_histogram,
+        "paired_hash_histogram_banked":
+            insert_kernel.paired_hash_histogram_banked,
+        "hash_histogram_banked": insert_kernel.hash_histogram_banked,
+        "sketch_query_banked": query_kernel.sketch_query_banked,
+    }
+    errs = {name: 0.0 for name in counters}
 
     # -- 3. insert kernel against its plain version ----------------------------
     def check_insert(label, zi, wi, mi, out_dtype):
@@ -238,12 +324,12 @@ def main() -> int:
         return fit, time.perf_counter() - start
 
     fit_kernel, _ = run_fit("auto")  # warm-up: libraries loaded, caches hot
-    insert_kernel.paired_hash_histogram.launches = 0
-    query_kernel.sketch_query.launches = 0
+    for c in counters.values():
+        c.launches = 0
     fit_kernel, fit_s = run_fit("auto")
-    launches = {"paired_hash_histogram":
-                insert_kernel.paired_hash_histogram.launches,
-                "sketch_query": query_kernel.sketch_query.launches}
+    fit_launches = {name: c.launches for name, c in counters.items()}
+    launches = {name: fit_launches[name]
+                for name in ("paired_hash_histogram", "sketch_query")}
     fit_plain, plain_s = run_fit("scan")
 
     var_y = float(y.var(correction=0))
@@ -262,19 +348,301 @@ def main() -> int:
         if not (torch.isfinite(fit.theta).all() and fit.theta.shape
                 == (D_FEATURES,)):
             raise AssertionError(f"{name} fit gave {fit.theta}")
-    _log(f"[fit] launches in the kernel fit: {launches}")
+    _log(f"[fit] launches in the kernel fit: {fit_launches}")
     if launches["paired_hash_histogram"] < 1:
         raise AssertionError("the fit did not run the insert kernel")
     expected_queries = steps + 2 * cfg.refine_steps + 1
-    if launches["sketch_query"] != expected_queries:
+    if (launches["sketch_query"] != expected_queries
+            or sum(fit_launches.values()) != 1 + expected_queries):
         raise AssertionError(f"expected {expected_queries} query launches, "
-                             f"got {launches['sketch_query']}")
+                             f"got {fit_launches}")
     if not results["kernel"] < var_y:
         raise AssertionError("the kernel fit does not beat the mean predictor")
     if abs(results["kernel"] - results["plain"]) > 0.02 * results["plain"]:
         raise AssertionError("kernel and plain fits differ by more than 2%")
 
-    # -- 6. timings -------------------------------------------------------------
+    # -- 6. single-sided insert against its plain version ------------------------
+    def check_single(label, xi, wi, mi, out_dtype):
+        got = insert_kernel.hash_histogram(xi, wi, mi, out_dtype)
+        want = ref.hash_histogram(xi, wi, mi, out_dtype)
+        torch.cuda.synchronize()
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        errs["hash_histogram"] = max(errs["hash_histogram"], err)
+        mass = got.to(torch.int64).sum(1)
+        _log(f"[single] {label}: n={xi.shape[0]} d={wi.shape[1]} "
+             f"p={wi.shape[0]} R={wi.shape[2]} {out_dtype} max|err|={err:g} "
+             f"row mass {int(mass.min())}..{int(mass.max())} "
+             f"(sum(mask) = {int(mi.sum())})")
+        if not torch.equal(got, want):
+            raise AssertionError(f"single-sided insert kernel differs from "
+                                 f"its plain version at {label}")
+        return got
+
+    def margin_rows(xc, yc):
+        """The classification path's insert input: aug(unit-ball(-y x))."""
+        zc, _ = lsh.scale_to_unit_ball(-yc[:, None] * xc, 1.05)
+        return lsh.augment_data(zc).contiguous()
+
+    xc, yc, _ = datasets.make_classification(gen, N_ROWS, D_FEATURES,
+                                             MARGIN)
+    xa = margin_rows(xc, yc)  # (n, d + 2)
+    ccfg = classification.StormClassifierConfig(rows=CLS_ROWS,
+                                                planes=CLS_PLANES)
+    cparams = lsh.init_srp(gen, CLS_ROWS, CLS_PLANES, D_FEATURES + 2,
+                           device=dev)
+    wc = ops.from_lsh_params(cparams)  # (p, d + 2, R)
+    check_single("full", xa, wc, ones, torch.int32)
+    for label, n, d, p, r, keep, out_dtype in (
+        ("ragged", 100_003, 11, 1, 1000, 0.9, torch.int32),
+        ("ragged", 77_777, 7, 2, 130, 0.7, torch.int32),
+        ("ragged", 12_345, 15, 4, 77, 0.5, torch.int32),
+        ("ragged", 5_001, 32, 8, 333, 1.0, torch.int32),
+        ("int16 saturating", 200_001, 4, 1, 50, 1.0, torch.int16),
+        ("int16", 30_000, 11, 2, 1024, 0.8, torch.int16),
+        ("int8 saturating", 50_001, 3, 2, 64, 1.0, torch.int8),
+    ):
+        zi, _ = lsh.scale_to_unit_ball(
+            torch.randn(n, d - 2, generator=gen, device=dev))
+        xi = lsh.augment_data(zi).contiguous()
+        wi = torch.randn(p, d, r, generator=gen, device=dev)
+        mi = (torch.rand(n, generator=gen, device=dev) < keep).float()
+        got = check_single(label, xi, wi, mi, out_dtype)
+        if "saturating" in label and int(got.max()) != torch.iinfo(out_dtype).max:
+            raise AssertionError(f"{label} did not saturate")
+
+    # -- 7. banked inserts: the bank build, then each slice ----------------------
+    sizes = [TENANT_ROWS] * (TENANTS - 1) + [TENANT_ROWS - TENANT_SHORT]
+    reg_tenants = [datasets.make_regression(gen, nt, D_FEATURES, NOISE,
+                                            CONDITION)[:2] for nt in sizes]
+    cls_tenants = [datasets.make_classification(gen, nt, D_FEATURES, MARGIN)
+                   [:2] for nt in sizes]
+    z_tenants = []
+    for xt, yt in reg_tenants:
+        xs_t, ys_t, *_ = regression._standardize(xt, yt, True)
+        zt, _ = lsh.scale_to_unit_ball(torch.cat([xs_t, ys_t[:, None]], 1),
+                                       cfg.norm_slack)
+        z_tenants.append(zt.contiguous())
+    x_tenants = [margin_rows(xt, yt) for xt, yt in cls_tenants]
+    bank_params = {True: params, False: cparams}
+    stacks = {True: z_tenants, False: x_tenants}
+    for c in counters.values():
+        c.launches = 0
+    banks = {paired: sketch_lib.sketch_dataset_many(
+        bank_params[paired], stacks[paired], paired=paired, engine="kernel",
+        device=dev) for paired in (True, False)}
+    torch.cuda.synchronize()
+    build_launches = {name: c.launches for name, c in counters.items()}
+    _log(f"[bank] launches in the bank build: {build_launches}")
+    if (build_launches["paired_hash_histogram_banked"] != 1
+            or build_launches["hash_histogram_banked"] != 1
+            or build_launches["paired_hash_histogram"]
+            or build_launches["hash_histogram"]):
+        raise AssertionError("the bank build did not run one banked insert "
+                             "per bank")
+    launches["paired_hash_histogram_banked"] = build_launches[
+        "paired_hash_histogram_banked"]
+    launches["hash_histogram_banked"] = build_launches["hash_histogram_banked"]
+    for paired, name, lone, plain in (
+        (True, "paired_hash_histogram_banked",
+         insert_kernel.paired_hash_histogram, ref.paired_hash_histogram_banked),
+        (False, "hash_histogram_banked", insert_kernel.hash_histogram,
+         ref.hash_histogram_banked),
+    ):
+        bank = banks[paired]
+        wb = ops.from_lsh_params(bank_params[paired])
+        stacked, mask = sketch_lib.stack_ragged(stacks[paired])
+        want = plain(stacked, wb, mask)
+        torch.cuda.synchronize()
+        err = float((bank.counts.to(torch.int64) - want.to(torch.int64))
+                    .abs().max())
+        errs[name] = max(errs[name], err)
+        slices_equal = all(
+            torch.equal(bank.counts[i], lone(
+                zt, wb, torch.ones(zt.shape[0], device=dev)))
+            for i, zt in enumerate(stacks[paired]))
+        per_point = 2 if paired else 1
+        mass_ok = torch.equal(
+            bank.counts.to(torch.int64).sum(2),
+            per_point * bank.n.to(torch.int64)[:, None].expand(
+                TENANTS, bank.rows))
+        _log(f"[bank] {name}: S={TENANTS} n={sizes[0]}..{sizes[-1]} "
+             f"R={bank.rows} B={bank.buckets}; max|err| vs plain={err:g}; "
+             f"slices equal the lone kernel: {slices_equal}; row masses "
+             f"{per_point}n: {mass_ok}; n={bank.n.tolist()}")
+        if not (torch.equal(bank.counts, want) and slices_equal and mass_ok
+                and bank.n.tolist() == sizes):
+            raise AssertionError(f"{name}: the bank differs from its plain "
+                                 f"version or from the lone kernel")
+
+    # -- 8. banked query against its plain version -------------------------------
+    bank = banks[True]
+    member_major = torch.repeat_interleave(
+        torch.arange(TENANTS, dtype=torch.int32, device=dev), 2 * k + 1)
+    for m_q, dtype in ((TENANTS * (2 * k + 1), torch.int32),
+                       (TENANTS, torch.int32), (2 * TENANTS, torch.int32),
+                       (TENANTS * dfo.refine_sample_count(dim - 2),
+                        torch.int32), (4096, torch.int32),
+                       (TENANTS * (2 * k + 1), torch.int16),
+                       (4096, torch.int8)):
+        th = torch.randn(m_q, dim - 2, generator=gen, device=dev)
+        q = lsh.augment_query(lsh.normalize_query(th)).contiguous()
+        idx = (member_major if m_q == member_major.numel() else
+               torch.randint(0, TENANTS, (m_q,), generator=gen, device=dev,
+                             dtype=torch.int32))
+        cnt = sketch_lib.saturating_cast(bank.counts, dtype)
+        got = query_kernel.sketch_query_banked(q, w, cnt, idx)
+        want = ref.sketch_query_banked(q, w, cnt, idx)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs["sketch_query_banked"] = max(errs["sketch_query_banked"], err)
+        _log(f"[bquery] m={m_q} {dtype}: max|err|={err:g}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"banked query kernel differs from its "
+                                 f"plain version at m={m_q}, {dtype}")
+
+    # -- 9. classification fit, then logistic and kmeans -------------------------
+    csteps = ccfg.dfo.steps
+    cdraws = dict(
+        params=cparams,
+        directions=dfo.sphere_directions(gen, csteps, 1, k, D_FEATURES, dev),
+        theta0_noise=torch.randn(D_FEATURES, generator=gen, device=dev))
+
+    def run_cls(engine):
+        c = dataclasses.replace(ccfg, engine=engine)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fit = classification.fit(gen, xc, yc, c, device=dev, **cdraws)
+        torch.cuda.synchronize()
+        return fit, time.perf_counter() - start
+
+    run_cls("auto")  # warm-up
+    for c in counters.values():
+        c.launches = 0
+    cls_kernel, cls_s = run_cls("auto")
+    cls_launches = {name: c.launches for name, c in counters.items()}
+    with plain_versions():
+        cls_ref, _ = run_cls("auto")
+    if not torch.equal(cls_ref.theta, cls_kernel.theta):
+        raise AssertionError("the kernel classification fit differs from the "
+                             "same fit through the kernels' plain versions")
+    cls_plain, cls_plain_s = run_cls("scan")
+    accs = {}
+    for name, fit, secs in (("kernel", cls_kernel, cls_s),
+                            ("plain", cls_plain, cls_plain_s)):
+        accs[name] = float(fit.accuracy(xc, yc))
+        _log(f"[cls] {name}: {secs:.3f} s, accuracy {accs[name]:.6f}, final "
+             f"sketch loss {float(fit.fleet_losses[0]):.6f}")
+        if not (torch.isfinite(fit.theta).all()
+                and fit.theta.shape == (D_FEATURES,)):
+            raise AssertionError(f"{name} classification fit gave {fit.theta}")
+    _log(f"[cls] launches in the kernel fit: {cls_launches}")
+    expected = csteps + 2 * ccfg.refine_steps + 1
+    if (cls_launches["hash_histogram"] != 1
+            or cls_launches["sketch_query"] != expected
+            or sum(cls_launches.values()) != 1 + expected):
+        raise AssertionError(f"expected 1 hash_histogram and {expected} "
+                             f"sketch_query launches, got {cls_launches}")
+    launches["hash_histogram"] = cls_launches["hash_histogram"]
+    if abs(accs["kernel"] - accs["plain"]) > 0.005:
+        raise AssertionError("kernel and plain classification accuracies "
+                             "differ by more than 0.5 points")
+
+    scfg = erm.ERMConfig(rows=CLS_ROWS, planes=CLS_PLANES)
+    for c in counters.values():
+        c.launches = 0
+    logi = erm.fit_surrogate("logistic", gen, xc, yc, scfg, device=dev)
+    torch.cuda.synchronize()
+    logi_acc = float(torch.mean((torch.sign(xc @ logi.theta) == yc)
+                                .to(torch.float32)))
+    _log(f"[logistic] accuracy {logi_acc:.6f}; launches "
+         f"{ {n: c.launches for n, c in counters.items()} }")
+    centers = torch.randn(2, D_FEATURES, generator=gen, device=dev)
+    centers = centers / torch.linalg.vector_norm(centers, dim=-1,
+                                                 keepdim=True)
+    pts = torch.cat([centers[i] + 0.15 * torch.randn(
+        N_ROWS // 2, D_FEATURES, generator=gen, device=dev)
+        for i in range(2)])
+    kcfg = erm.ERMConfig(rows=CLS_ROWS, planes=KMEANS_PLANES)
+    for c in counters.values():
+        c.launches = 0
+    km = erm.fit_surrogate("kmeans", gen, pts, None, kcfg, device=dev)
+    torch.cuda.synchronize()
+    zk, _ = lsh.scale_to_unit_ball(pts, 1.05)
+    rand_dirs = torch.randn(32, D_FEATURES, generator=gen, device=dev)
+    dens_fit = -float(km.objective(zk))
+    dens_rand = statistics.mean(
+        -float(losses.KMEANS.objective(v, zk, KMEANS_PLANES))
+        for v in rand_dirs)
+    gain = dens_fit / max(dens_rand, 1e-12)
+    _log(f"[kmeans] density gain over 32 random directions {gain:.6f}; "
+         f"launches { {n: c.launches for n, c in counters.items()} }")
+    for name, fit in (("logistic", logi), ("kmeans", km)):
+        if not torch.isfinite(fit.theta).all():
+            raise AssertionError(f"{name} fit gave {fit.theta}")
+
+    # -- 10. banked regression fit -------------------------------------------
+    fleet_size = TENANTS * cfg.restarts
+    mdraws = dict(
+        params=params,
+        directions=dfo.sphere_directions(gen, steps, fleet_size, k, dim - 2,
+                                         dev),
+        refine_samples=torch.randn(
+            cfg.refine_steps, fleet_size, dfo.refine_sample_count(dim - 2),
+            dim - 2, generator=gen, device=dev))
+    xs_m = [xt for xt, _ in reg_tenants]
+    ys_m = [yt for _, yt in reg_tenants]
+
+    def run_many(engine):
+        c = regression.StormRegressorConfig(engine=engine)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fit = regression.fit_many(gen, xs_m, ys_m, c, device=dev, **mdraws)
+        torch.cuda.synchronize()
+        return fit, time.perf_counter() - start
+
+    run_many("auto")  # warm-up
+    for c in counters.values():
+        c.launches = 0
+    many_kernel, many_s = run_many("auto")
+    many_launches = {name: c.launches for name, c in counters.items()}
+    with plain_versions():
+        many_plain, many_plain_s = run_many("auto")
+    many_scan, many_scan_s = run_many("scan")
+    _log(f"[many] kernel {many_s:.3f} s, plain versions {many_plain_s:.3f} s, "
+         f"scan engine {many_scan_s:.3f} s; launches in the kernel fit: "
+         f"{many_launches}")
+    expected = steps + 2 * cfg.refine_steps + 1
+    if (many_launches["paired_hash_histogram"] != TENANTS
+            or many_launches["sketch_query_banked"] != expected
+            or many_launches["sketch_query"] != 0
+            or sum(many_launches.values()) != TENANTS + expected):
+        raise AssertionError(f"expected {TENANTS} paired inserts and "
+                             f"{expected} banked queries, got {many_launches}")
+    launches["sketch_query_banked"] = many_launches["sketch_query_banked"]
+    faults = []
+    for i, (xt, yt) in enumerate(reg_tenants):
+        var_t = float(yt.var(correction=0))
+        mse_k, mse_p, mse_s = (float(f.select(i).mse(xt, yt)) for f in
+                               (many_kernel, many_plain, many_scan))
+        _log(f"[many] tenant {i}: n={xt.shape[0]} MSE kernel {mse_k:.6f}, "
+             f"plain versions {mse_p:.6f} ({100 * (mse_k / mse_p - 1):+.3f}%), "
+             f"scan engine {mse_s:.6f} ({100 * (mse_k / mse_s - 1):+.3f}%); "
+             f"var(y) {var_t:.6f}, R^2 {1 - mse_k / var_t:.6f}")
+        if not torch.isfinite(many_kernel.theta[i]).all():
+            faults.append(f"tenant {i} fit gave {many_kernel.theta[i]}")
+        if not (mse_k < var_t and mse_s < var_t):
+            faults.append(f"tenant {i} does not beat its mean predictor")
+        if abs(mse_k - mse_p) > 0.02 * mse_p:
+            faults.append(f"tenant {i}: kernel and plain-version fits differ "
+                          f"by more than 2%")
+    if not (torch.equal(many_kernel.theta, many_plain.theta)
+            and torch.equal(many_kernel.bank.counts, many_plain.bank.counts)):
+        faults.append("the kernel fit differs from the same fit through the "
+                      "kernels' plain versions")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+    # -- 11. timings ------------------------------------------------------------
     # "ms" is device time per launch from torch.profiler (CUPTI); where the
     # profiler records no device activity it is the CUDA-event time per call,
     # which also counts the host's gaps between launches.
@@ -283,6 +651,14 @@ def main() -> int:
     th = torch.randn(m, dim - 2, generator=gen, device=dev)
     q = lsh.augment_query(lsh.normalize_query(th)).contiguous()
     counts = fit_kernel.sketch.counts
+    zb, mb = sketch_lib.stack_ragged(z_tenants)
+    xb, mxb = sketch_lib.stack_ragged(x_tenants)
+    n_valid = float(mb.sum())  # the masked rows need no projection
+    pc, dc, rc = wc.shape
+    mq = TENANTS * (2 * k + 1)  # one DFO step of the 16-tenant fleet
+    thb = torch.randn(mq, dim - 2, generator=gen, device=dev)
+    qb = lsh.augment_query(lsh.normalize_query(thb)).contiguous()
+    bcounts = banks[True].counts
     cases = {
         "paired_hash_histogram": (
             lambda: insert_kernel.paired_hash_histogram(z, w, ones),
@@ -299,6 +675,36 @@ def main() -> int:
             _bound(bytes_moved=4 * (q.numel() + w.numel() + m
                                     + min(m * rows, counts.numel())),
                    flops=2.0 * m * d_aug * rows * p)),
+        "hash_histogram": (
+            lambda: insert_kernel.hash_histogram(xa, wc, ones),
+            lambda: ref.hash_histogram(xa, wc, ones), 5, 1, "hist_kernel",
+            _bound(bytes_moved=4 * (xa.numel() + ones.numel() + wc.numel()
+                                    + rc * (1 << pc)),
+                   flops=2.0 * N_ROWS * dc * rc * pc)),
+        "paired_hash_histogram_banked": (
+            lambda: insert_kernel.paired_hash_histogram_banked(zb, w, mb),
+            lambda: ref.paired_hash_histogram_banked(zb, w, mb), 3, 1,
+            "paired_hist_kernel",
+            _bound(bytes_moved=4 * (zb.numel() + mb.numel() + w.numel()
+                                    + TENANTS * rows * (1 << p)),
+                   flops=2.0 * n_valid * d_aug * rows * p)),
+        "hash_histogram_banked": (
+            lambda: insert_kernel.hash_histogram_banked(xb, wc, mxb),
+            lambda: ref.hash_histogram_banked(xb, wc, mxb), 5, 1,
+            "hist_kernel",
+            _bound(bytes_moved=4 * (xb.numel() + mxb.numel() + wc.numel()
+                                    + TENANTS * rc * (1 << pc)),
+                   flops=2.0 * float(mxb.sum()) * dc * rc * pc)),
+        "sketch_query_banked": (
+            lambda: query_kernel.sketch_query_banked(qb, w, bcounts,
+                                                     member_major),
+            lambda: ref.sketch_query_banked(qb, w, bcounts, member_major),
+            200, 20, "sketch_query_kernel",
+            # Each point reads at most R cells of its own table, no cell
+            # more than once; the index is read once.
+            _bound(bytes_moved=4 * (qb.numel() + w.numel() + 2 * mq
+                                    + min(mq * rows, bcounts.numel())),
+                   flops=2.0 * mq * d_aug * rows * p)),
     }
     times = {}
     for name, (kern, plain, reps, plain_reps, symbol, bound) in cases.items():
@@ -313,23 +719,29 @@ def main() -> int:
              f"per call by CUDA events; plain version: device "
              f"{plain_dev_ms} ms, {plain_wall:.4f} ms per call")
 
-    # Where the fit's time goes: device busy time under the profiler.
-    busy, kernel_ms, wall_s = _fit_profile(lambda: run_fit("auto"), torch)
-    if busy is not None:
-        top = ", ".join(f"{n[:40]} {t:.2f} ms" for n, t in kernel_ms[:5])
-        of = lambda symbol: sum(t for n, t in kernel_ms if symbol in n)
-        _log(f"[fit] under the profiler: {wall_s * 1e3:.1f} ms wall, device "
-             f"busy {busy:.1f} ms ({100 * busy / (wall_s * 1e3):.1f}%); "
-             f"insert {of('paired_hist_kernel'):.2f} ms, queries "
-             f"{of('sketch_query_kernel'):.2f} ms; top kernels: {top}")
+    # Where each fit's time goes: device busy time under the profiler.
+    _fit_profile("fit", lambda: run_fit("auto"), torch,
+                 ("paired_hist_kernel", "sketch_query_kernel"))
+    _fit_profile("cls", lambda: run_cls("auto"), torch,
+                 ("hist_kernel", "sketch_query_kernel"))
+    _fit_profile("many", lambda: run_many("auto"), torch,
+                 ("paired_hist_kernel", "sketch_query_kernel"))
 
     kernels = []
+    csrc = "src/repro_torch/kernels/csrc/"
     for name, src, replaces in (
-        ("paired_hash_histogram",
-         "src/repro_torch/kernels/csrc/paired_hash_histogram.cu",
+        ("paired_hash_histogram", csrc + "paired_hash_histogram.cu",
          "src/repro/kernels/storm_sketch.py:219"),
-        ("sketch_query", "src/repro_torch/kernels/csrc/sketch_query.cu",
+        ("sketch_query", csrc + "sketch_query.cu",
          "src/repro/kernels/sketch_query.py:80"),
+        ("hash_histogram", csrc + "hash_histogram.cu",
+         "src/repro/kernels/storm_sketch.py:112"),
+        ("paired_hash_histogram_banked", csrc + "paired_hash_histogram.cu",
+         "src/repro/kernels/storm_sketch.py:450"),
+        ("hash_histogram_banked", csrc + "hash_histogram.cu",
+         "src/repro/kernels/storm_sketch.py:339"),
+        ("sketch_query_banked", csrc + "sketch_query.cu",
+         "src/repro/kernels/sketch_query.py:175"),
     ):
         ms, plain_ms, (bound_ms, bound_by) = times[name]
         kernels.append({
@@ -339,7 +751,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
         _log(f"[time] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-             f"{bound_ms:.4f} ms by {bound_by})")
+             f"{bound_ms:.4f} ms by {bound_by}, {launches[name]} launches)")
     _log(json.dumps({"kernels": kernels}))
     _log(smi)
     _log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
-"""Shared fleet machinery for the STORM fits (port of the lone-sketch half
-of ``repro.core.fleet``).
+"""Shared fleet machinery for the STORM fits (port of ``repro.core.fleet``).
 
-* :func:`make_loss_fn`: the batched sketch-loss closure; the kernel weight
-  layout ``(R, p, d) -> (p, d, R)`` is converted once per session.
-* :func:`seed_fleet`: member 0 is the fit's baseline; members ``i >= 1``
-  draw random-ball inits and walk geometric sigma/lr ladders.
+* :func:`make_loss_fn`: the batched sketch-loss closure, over one sketch or
+  a :class:`~.sketch.SketchBank`; the kernel weight layout
+  ``(R, p, d) -> (p, d, R)`` is converted once per session.
+* :func:`seed_fleet` / :func:`seed_fleet_many`: member 0 is the fit's
+  baseline; members ``i >= 1`` draw random-ball inits and walk geometric
+  sigma/lr ladders; banked fleets stack one block per tenant.
 * :func:`run_fleet`: optimize, then refine with a halving radius.
-* :func:`select_theta`: one fused query for all members (+ an optional
-  zero guard), with the basin-average mode.
+* :func:`select_theta` / :func:`select_theta_many`: one fused query for all
+  members (+ an optional zero guard), with the basin-average mode.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import dfo, lsh, sketch as sketch_lib
@@ -52,34 +54,75 @@ def validate_select(select: str) -> None:
                          "use best | average")
 
 
+def member_point_idx(member_map: Tensor, q: int) -> Tensor:
+    """Per-point sketch index of a member-major ``(q, ...)`` batch.
+
+    A batch of ``q`` points laid out as ``F`` contiguous per-member blocks
+    routes row ``i`` to ``member_map[i // (q // F)]``.
+    """
+    f = member_map.shape[0]
+    if q % f:
+        raise ValueError(f"banked batch of {q} points is not member-major "
+                         f"over {f} fleet members")
+    return torch.repeat_interleave(member_map, q // f)
+
+
 def make_loss_fn(
-    sk: sketch_lib.Sketch,
+    sk,
     params: lsh.LSHParams,
     paired: bool = True,
     scale: float = 1.0,
     l2: float = 0.0,
     engine: str = "auto",
     d: Optional[int] = None,
+    member_map: Optional[Tensor] = None,
     transform: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Callable[[Tensor], Tensor]:
     """Batched sketch-loss closure ``(q, dim) -> (q,)``.
 
     On the kernel engine the weight layout is converted here, once, and every
-    call is one ``sketch_query`` launch on the card. ``d`` is the number of
-    leading coordinates the ridge ``l2`` applies to (default
-    ``params.dim - 3``).
+    call is one query launch on the card. ``d`` is the number of leading
+    coordinates the ridge ``l2`` applies to (default ``params.dim - 3``).
+
+    ``sk`` is a lone :class:`~.sketch.Sketch`, or a
+    :class:`~.sketch.SketchBank` with ``member_map`` (``(F,)`` sketch index
+    of each fleet member): the closure then takes member-major batches whose
+    size is a multiple of ``F`` and routes each point to its member's table,
+    one ``sketch_query_banked`` launch per call. A 1-sketch bank runs the
+    lone-sketch program itself, so ``S = 1`` is the lone fit bit for bit.
     """
     d = params.dim - 3 if d is None else d
+    banked = isinstance(sk, sketch_lib.SketchBank)
+    if banked != (member_map is not None):
+        raise ValueError("member_map must be given iff sk is a SketchBank")
+    if banked and sk.size == 1:
+        sk, banked, member_map = sk.select(0), False, None
+    idx_cache = {}
+
+    def point_idx(thetas: Tensor) -> Tensor:
+        if thetas.ndim != 2:
+            raise ValueError("banked loss closures need (q, dim) batches")
+        q = thetas.shape[0]
+        if q not in idx_cache:  # one index per batch size of the session
+            idx_cache[q] = member_point_idx(
+                member_map.to(thetas.device, torch.int32), q)
+        return idx_cache[q]
+
     if sketch_lib.resolve_engine(engine, sk.counts.device) == "kernel":
         from repro_torch.kernels import ops  # deferred: ops imports core
 
         w = ops.from_lsh_params(params)  # hoisted: once per session
 
         def estimate(thetas: Tensor) -> Tensor:
-            return ops.query_theta_with_weights(sk, w, thetas, paired=paired)
+            idx = point_idx(thetas) if banked else None
+            return ops.query_theta_with_weights(sk, w, thetas, paired=paired,
+                                                sketch_idx=idx)
     else:
 
         def estimate(thetas: Tensor) -> Tensor:
+            if banked:
+                return sketch_lib.query_theta_banked(
+                    sk, params, thetas, point_idx(thetas), paired=paired)
             return sketch_lib.query_theta(sk, params, thetas, paired=paired)
 
     def loss_fn(thetas: Tensor) -> Tensor:
@@ -138,12 +181,56 @@ def seed_fleet(
 
 
 def tenant_key(gen: torch.Generator, s: int) -> torch.Generator:
-    """Per-tenant generator: tenant 0 uses ``gen`` itself, tenant ``s >= 1``
-    a generator seeded from ``gen``'s seed plus ``s``."""
+    """Per-tenant generator of a banked fit.
+
+    Tenant 0 uses ``gen`` itself, so ``fit_many`` with ``S = 1`` draws
+    exactly what the lone ``fit`` draws. Tenant ``s >= 1`` gets a generator
+    seeded from ``numpy.random.SeedSequence([seed, s])`` of ``gen``'s seed:
+    the streams of different ``(seed, tenant)`` pairs are unrelated, as
+    ``jax.random.fold_in`` makes them in the reference.
+    """
     if s == 0:
         return gen
-    return torch.Generator(device=gen.device).manual_seed(
-        gen.initial_seed() + s)
+    words = np.random.SeedSequence([gen.initial_seed(), s]).generate_state(
+        2, np.uint32)
+    seed = (int(words[0]) << 32 | int(words[1])) & ((1 << 63) - 1)
+    return torch.Generator(device=gen.device).manual_seed(seed)
+
+
+def seed_fleet_many(
+    s: int,
+    f: int,
+    dim: int,
+    base: dfo.DFOConfig,
+    config: Optional[FleetConfig] = None,
+    theta0: Optional[Tensor] = None,
+    inits: Optional[Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Seed ``S`` per-tenant restart fleets into one member-major block.
+
+    Tenant ``t`` runs :func:`seed_fleet` under :func:`tenant_key`; its ``F``
+    members occupy rows ``[t*F, (t+1)*F)``, matching the
+    ``member_map = repeat(arange(S), F)`` routing of banked loss closures.
+
+    Args:
+      theta0: ``(S, dim)`` per-tenant baselines, or ``None`` for zeros.
+      inits: ``(S, F - 1, dim)`` standard normals, or ``None`` to draw them.
+
+    Returns:
+      ``(theta0 (S*F, dim), sigmas (S*F,), lrs (S*F,))``.
+    """
+    parts = [
+        seed_fleet(f, dim, base, config,
+                   theta0=None if theta0 is None else theta0[t],
+                   inits=None if inits is None else inits[t],
+                   generator=(None if generator is None
+                              else tenant_key(generator, t)),
+                   device=device)
+        for t in range(s)
+    ]
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
 
 
 def run_fleet(
@@ -219,3 +306,55 @@ def select_theta(
         # If the guard won, report the best member's trace.
         trace = traces[torch.where(idx < f, idx, best_member)]
     return theta_tilde, trace, fleet_vals
+
+
+def select_theta_many(
+    loss_fn: Callable[[Tensor], Tensor],
+    thetas: Tensor,
+    traces: Tensor,
+    select: str = "best",
+    basin_tol: float = 0.05,
+    guard: Optional[Tensor] = None,
+    project: Optional[Callable[[Tensor], Tensor]] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Per-tenant :func:`select_theta` of a banked fleet, in one fused query.
+
+    ``loss_fn`` is a banked closure with ``member_map = arange(S)``, so each
+    tenant's candidate block reads its own sketch; ``thetas`` is
+    ``(S, F, dim)`` and ``traces`` ``(S, F, steps)``. The guard is one
+    shared ``(dim,)`` candidate evaluated per tenant. ``S = 1`` reproduces
+    :func:`select_theta`.
+
+    Returns ``(theta (S, dim), trace (S, steps), fleet_vals (S, F))``.
+    """
+    s, f, dim = thetas.shape
+    proj = project if project is not None else (lambda t: t)
+    rows = torch.arange(s, device=thetas.device)
+    cand = thetas if guard is None else torch.cat(
+        [thetas, guard.expand(s, 1, dim)], dim=1)
+    vals = loss_fn(cand.reshape(s * cand.shape[1], dim)).reshape(
+        s, cand.shape[1])
+    fleet_vals = vals[:, :f]
+    best_member = torch.argmin(fleet_vals, dim=1)
+    if f > 1 and select == "average":
+        best = torch.min(fleet_vals, dim=1, keepdim=True).values
+        keep = fleet_vals <= best * (1.0 + basin_tol) + 1e-12
+        avg = proj(
+            torch.where(keep[:, :, None], thetas, 0.0).sum(dim=1)
+            / torch.clamp(keep.to(torch.float32).sum(dim=1, keepdim=True),
+                          min=1.0)
+        )
+        runoff_rows = [avg, thetas[rows, best_member]]
+        if guard is not None:
+            runoff_rows.append(cand[:, -1])
+        runoff = torch.stack(runoff_rows, dim=1)
+        runoff_vals = loss_fn(runoff.reshape(-1, dim)).reshape(
+            s, runoff.shape[1])
+        # argmin takes the first minimum: exact ties go to the average.
+        theta = runoff[rows, torch.argmin(runoff_vals, dim=1)]
+        trace = traces[rows, best_member]
+    else:
+        idx = torch.argmin(vals, dim=1)
+        theta = cand[rows, idx]
+        trace = traces[rows, torch.where(idx < f, idx, best_member)]
+    return theta, trace, fleet_vals

@@ -1,5 +1,6 @@
 """Analytic surrogate losses and the surrogate registry (port of
-``repro.core.losses``; this slice registers ``prp_regression`` only).
+``repro.core.losses``: ``prp_regression``, ``margin_classification``,
+``logistic`` and ``kmeans``).
 
 The closed-form expectations of the sketch queries are oracles for tests;
 a :class:`Surrogate` spec is everything ``core.erm`` needs to train one loss
@@ -37,8 +38,24 @@ def prp_empirical_risk(theta: Tensor, x: Tensor, y: Tensor, planes: int
     return torch.mean(prp_surrogate(z @ tt, planes))
 
 
+def classification_surrogate(margin: Tensor, planes: int) -> Tensor:
+    """Theorem 3 margin loss ``phi(t) = 2^p (1 - acos(-t)/pi)^p``, ``t = y<theta, x>``."""
+    return (2.0 ** planes) * _f(-margin) ** planes
+
+
+def classification_empirical_risk(theta: Tensor, x: Tensor, y: Tensor,
+                                  planes: int) -> Tensor:
+    """Mean classification surrogate; ``y in {-1, +1}``; data pre-scaled."""
+    th = theta / torch.clamp(torch.linalg.vector_norm(theta), min=1e-12)
+    return torch.mean(classification_surrogate(y * (x @ th), planes))
+
+
 def l2_empirical_risk(theta: Tensor, x: Tensor, y: Tensor) -> Tensor:
     return torch.mean((x @ theta - y) ** 2)
+
+
+def hinge_empirical_risk(theta: Tensor, x: Tensor, y: Tensor) -> Tensor:
+    return torch.mean(torch.clamp(1.0 - y * (x @ theta), min=0.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,9 +127,29 @@ def _unit_scale(planes: int) -> float:
     return 1.0
 
 
+def _pow2_scale(planes: int) -> float:
+    return 2.0 ** planes
+
+
+def _neg_scale(planes: int) -> float:
+    del planes
+    return -1.0
+
+
 def _encode_regression(x: Tensor, y: Optional[Tensor]) -> Tensor:
     """PRP regression rows: ``[x, y]`` (homogeneous target column)."""
     return torch.cat([x, y[:, None]], dim=-1)
+
+
+def _encode_margin(x: Tensor, y: Optional[Tensor]) -> Tensor:
+    """Theorem 3 premultiplication: ``-y x`` folds the label into the row."""
+    return -y[:, None] * x
+
+
+def _encode_points(x: Tensor, y: Optional[Tensor]) -> Tensor:
+    """Unsupervised losses sketch the points themselves; ``y`` is ignored."""
+    del y
+    return x
 
 
 #: Paper section 4.1 / Theorem 2: least squares through the paired PRP surrogate.
@@ -120,4 +157,27 @@ PRP_REGRESSION = register(Surrogate(
     name="prp_regression", paired=True, pad=1, pin_last=-1.0,
     zero_guard=True, init_noise=False, refine_steps=1,
     scale=_unit_scale, transform=None, encode=_encode_regression,
+))
+
+#: Paper section 4.2 / Theorem 3: max-margin classification, single-sided sketch.
+MARGIN_CLASSIFICATION = register(Surrogate(
+    name="margin_classification", paired=False, pad=0, pin_last=None,
+    zero_guard=False, init_noise=True, refine_steps=0,
+    scale=_pow2_scale, transform=None, encode=_encode_margin,
+))
+
+#: Exp-concave logistic-style objective: ``log1p`` of the scaled margin
+#: estimate (monotone, so the same argmin as the margin surrogate).
+LOGISTIC = register(Surrogate(
+    name="logistic", paired=False, pad=0, pin_last=None,
+    zero_guard=False, init_noise=True, refine_steps=0,
+    scale=_pow2_scale, transform=torch.log1p, encode=_encode_margin,
+))
+
+#: Compressive k-means: minimizing the negated RACE density estimate of the
+#: sketched point cloud drives ``theta`` to a density mode. Unsupervised.
+KMEANS = register(Surrogate(
+    name="kmeans", paired=False, pad=0, pin_last=None,
+    zero_guard=False, init_noise=True, refine_steps=0,
+    scale=_neg_scale, transform=None, encode=_encode_points,
 ))

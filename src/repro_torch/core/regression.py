@@ -5,13 +5,14 @@ Pipeline: standardize -> scale ``[x, y]`` into the unit ball -> one-pass PRP
 sketch -> derivative-free minimization of the sketch-estimated surrogate ->
 un-standardize ``theta``. On the card (the default) the sketch is one
 ``paired_hash_histogram`` launch and every DFO step one ``sketch_query``
-launch.
+launch. :func:`fit_many` fits ``S`` tenants under one hash family, every DFO
+step one ``sketch_query_banked`` launch for all of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -154,6 +155,117 @@ def fit(
     intercept = ym - torch.dot(xm, theta)
     return FittedRegressor(
         theta=theta, intercept=intercept, theta_std=theta_std, sketch=sk,
+        params=params, losses=res.losses, x_mean=xm, x_scale=xsc, y_mean=ym,
+        y_scale=ysc, fleet_losses=res.fleet_losses,
+    )
+
+
+class FittedRegressorMany(NamedTuple):
+    """``S`` per-tenant regressors trained in one banked fleet."""
+
+    theta: Tensor          # (S, d) weights in each tenant's feature space
+    intercept: Tensor      # (S,)
+    theta_std: Tensor      # (S, d) standardized-space weights
+    bank: sketch_lib.SketchBank
+    params: lsh.LSHParams
+    losses: Tensor         # (S, steps) trace of each tenant's selected member
+    x_mean: Tensor         # (S, d)
+    x_scale: Tensor        # (S, d)
+    y_mean: Tensor         # (S,)
+    y_scale: Tensor        # (S,)
+    fleet_losses: Tensor   # (S, F) final sketch loss per tenant member
+
+    @property
+    def tenants(self) -> int:
+        return self.theta.shape[0]
+
+    def select(self, i: int) -> FittedRegressor:
+        """Tenant ``i`` as a standalone :class:`FittedRegressor`."""
+        return FittedRegressor(
+            theta=self.theta[i], intercept=self.intercept[i],
+            theta_std=self.theta_std[i], sketch=self.bank.select(i),
+            params=self.params, losses=self.losses[i],
+            x_mean=self.x_mean[i], x_scale=self.x_scale[i],
+            y_mean=self.y_mean[i], y_scale=self.y_scale[i],
+            fleet_losses=self.fleet_losses[i],
+        )
+
+    def predict(self, x: Tensor) -> Tensor:
+        """Per-tenant predictions for ``x: (S, n, d)`` -> ``(S, n)``."""
+        return (torch.einsum("snd,sd->sn", x, self.theta)
+                + self.intercept[:, None])
+
+    def mse(self, x: Tensor, y: Tensor) -> Tensor:
+        return torch.mean((self.predict(x) - y) ** 2, dim=-1)
+
+
+def fit_many(
+    gen: Optional[torch.Generator],
+    x: Union[Tensor, Sequence[Tensor]],
+    y: Union[Tensor, Sequence[Tensor]],
+    config: Optional[StormRegressorConfig] = None,
+    *,
+    params: Optional[lsh.LSHParams] = None,
+    directions: Optional[Tensor] = None,
+    refine_samples: Optional[Tensor] = None,
+    device: DeviceLike = None,
+) -> FittedRegressorMany:
+    """Fit ``S`` per-tenant regressions from one banked query stream.
+
+    Each tenant runs :func:`fit`'s preprocessing (standardize, then
+    ``erm.sketch_surrogate``) under ONE shared hash family; ``bank_of``
+    stacks the sketches, and an ``S*F``-member fleet trains with one fused
+    banked query per DFO step. ``S = 1`` is :func:`fit` bit for bit.
+
+    Args:
+      gen: as :func:`fit`; tenant ``t`` draws from ``fleet.tenant_key``.
+      x: ``(S, n, d)`` stacked features, or a sequence of ``(n_s, d)``
+        tensors (lengths may differ); y: the matching targets.
+      params / directions / refine_samples: a hash family and all tenants'
+        draws to use instead of drawing them (see ``erm.fit_many``).
+      device: ``None`` runs on the card and raises without one.
+    """
+    dev = resolve_device(device)
+    config = config or StormRegressorConfig()
+    fleet.validate_select(config.restart_select)
+    gen = gen if gen is not None else make_generator(0, dev)
+    xs_list, ys_list = erm.tenant_lists(x, y)
+    s = len(xs_list)
+    d = xs_list[0].shape[-1]
+    if params is None:
+        params = lsh.init_srp(gen, config.rows, config.planes, d + 3,
+                              orthogonal=config.orthogonal, device=dev)
+    sketches, moments = [], []
+    for xt, yt in zip(xs_list, ys_list):
+        xs_, ys_, *m = _standardize(xt.to(dev, torch.float32),
+                                    yt.to(dev, torch.float32),
+                                    config.standardize)
+        sketches.append(erm.sketch_surrogate(
+            _SPEC, params, xs_, ys_, norm_slack=config.norm_slack,
+            batch=config.batch,
+            dtype=sketch_lib.counter_dtype(config.count_dtype),
+            engine=config.engine, device=dev,
+        ))
+        moments.append(m)
+    bank = sketch_lib.bank_of(sketches)
+
+    res = erm.fit_many(
+        _SPEC, bank, params, dfo_config=config.dfo,
+        fleet_config=fleet.config_from_restarts(config),
+        restarts=config.restarts, l2=config.l2, engine=config.engine,
+        refine_steps=config.refine_steps, refine_radius=config.refine_radius,
+        generator=gen, directions=directions, refine_samples=refine_samples,
+        device=dev,
+    )
+    theta_std = res.theta[:, :d]
+    xm, xsc, ym, ysc = (torch.stack([m[i] for m in moments])
+                        for i in range(4))
+    theta = ysc[:, None] * theta_std / xsc
+    # One dot per tenant, as fit() does, so S = 1 repeats its intercept.
+    intercept = torch.stack([ym[t] - torch.dot(xm[t], theta[t])
+                             for t in range(s)])
+    return FittedRegressorMany(
+        theta=theta, intercept=intercept, theta_std=theta_std, bank=bank,
         params=params, losses=res.losses, x_mean=xm, x_scale=xsc, y_mean=ym,
         y_scale=ysc, fleet_losses=res.fleet_losses,
     )

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import torch
 
@@ -58,3 +58,37 @@ def make_regression(
 def make_uci_matched(gen: torch.Generator, spec: DatasetSpec
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     return make_regression(gen, spec.n, spec.d, spec.noise, spec.condition)
+
+
+def make_2d_regression(gen: torch.Generator, n: int = 2000,
+                       noise: float = 0.1) -> Tuple[Tensor, Tensor, Tensor]:
+    """The paper's Fig. 5 qualitative 2D regression dataset: ``x`` uniform
+    in ``[-1, 1]``, ``y = 0.7 x + noise * eps``."""
+    dev = gen.device
+    x = torch.rand((n, 1), generator=gen, device=dev) * 2.0 - 1.0
+    theta = torch.tensor([0.7], device=dev)
+    y = x @ theta + noise * torch.randn((n,), generator=gen, device=dev)
+    return x, y, theta
+
+
+def make_classification(
+    gen: torch.Generator, n: int = 2000, d: int = 2, margin: float = 0.5,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Two linearly separable Gaussian blobs; labels in {-1, +1}.
+
+    Returns ``(x, y, theta_true)`` on ``gen``'s device; each point is pushed
+    ``margin`` along the unit normal ``theta_true`` to its label's side.
+    """
+    dev = gen.device
+    theta = torch.randn((d,), generator=gen, device=dev)
+    theta = theta / torch.linalg.vector_norm(theta)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    y = torch.sign(x @ theta)
+    return x + margin * y[:, None] * theta, y, theta
+
+
+def stream_batches(x: Tensor, y: Tensor, batch: int
+                   ) -> Iterator[Tuple[Tensor, Tensor]]:
+    """Streaming iterator: one pass, no shuffling (edge order)."""
+    for i in range(0, x.shape[0], batch):
+        yield x[i:i + batch], y[i:i + batch]

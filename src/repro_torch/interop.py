@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsh import LSHParams
-from repro_torch.core.sketch import Sketch
+from repro_torch.core.sketch import Sketch, SketchBank
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -44,6 +44,20 @@ def sketch(counts, n, device: DeviceLike = None) -> Sketch:
                   n=torch.tensor(int(n), dtype=torch.int32, device=dev))
 
 
+def sketch_bank(counts, n, device: DeviceLike = None) -> SketchBank:
+    """``(S, R, B)`` integer counts and ``(S,)`` insert counts -> bank."""
+    c = np.array(counts)  # a writable copy
+    if c.ndim != 3 or c.dtype.kind not in "iu":
+        raise ValueError(f"counts must be a 3-D integer array; got "
+                         f"{c.dtype} {c.shape}")
+    nn = np.array(n, dtype=np.int32)
+    if nn.shape != c.shape[:1]:
+        raise ValueError(f"n must be ({c.shape[0]},); got {nn.shape}")
+    dev = resolve_device(device)
+    return SketchBank(counts=torch.from_numpy(c).to(dev),
+                      n=torch.from_numpy(nn).to(dev))
+
+
 def directions(v, device: DeviceLike = None) -> torch.Tensor:
     """Unit sphere directions ``(steps, F, k, dim)`` for ``dfo.minimize_fleet``."""
     return _float_tensor(v, 4, "directions", device)
@@ -65,3 +79,7 @@ def lsh_params_to_numpy(params: LSHParams) -> np.ndarray:
 
 def sketch_to_numpy(sk: Sketch) -> tuple[np.ndarray, int]:
     return to_numpy(sk.counts), int(sk.n)
+
+
+def bank_to_numpy(bank: SketchBank) -> tuple[np.ndarray, np.ndarray]:
+    return to_numpy(bank.counts), to_numpy(bank.n)

@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them by ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
-plain C interface, ``_build/lib<name>_<hash>.so``; the hash covers the source
-and the flags, so an edited source builds anew and an unchanged one is reused.
+plain C interface, ``_build/lib<name>_<hash>.so``; the hash covers the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header builds anew and an unchanged one is reused.
 All missing libraries build at once, one ``nvcc`` each, on first use. Nothing
 is built when the package is imported: the CPU has no ``nvcc``.
 """
@@ -43,7 +44,9 @@ def sources() -> list[Path]:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,70 @@
+// Shared by the insert kernels (paired_hash_histogram.cu, hash_histogram.cu):
+// the grid sizing over (R-tile, n-chunk, tenant) and the saturating epilogue
+// that narrows the int32 histogram to int16/int8.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace storm {
+
+constexpr int kTilePoints = 64;   // points staged in shared memory per step
+constexpr int kBlocksPerSm = 8;   // target resident blocks when sizing the grid
+
+// Threads per block of an insert kernel: one hash row each, and the
+// bucket-major histogram (2^p ints per thread) stays within 32 KB.
+inline int insert_threads(int p) { return std::min(128, 8192 >> p); }
+
+// The grid of an insert over `tenants` streams of n points each:
+// x = R-tiles of `threads` rows, z = the tenant, y = n-chunks of whole
+// point tiles, enough of them to fill the card. Writes the grid and the
+// points per chunk.
+inline cudaError_t insert_grid(int n, int rows, int threads, int tenants,
+                               dim3* grid, int* chunk) {
+  if (tenants < 1 || tenants > 65535) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long gx = (rows + threads - 1) / threads;
+  const long long tiles = ((long long)n + kTilePoints - 1) / kTilePoints;
+  long long gy = ((long long)sms * kBlocksPerSm + gx * tenants - 1) /
+                 (gx * tenants);
+  gy = std::max(1LL, std::min(gy, std::min(tiles, 65535LL)));
+  const long long per = (tiles + gy - 1) / gy * kTilePoints;
+  gy = ((long long)n + per - 1) / per;
+  *grid = dim3((unsigned)gx, (unsigned)gy, (unsigned)tenants);
+  *chunk = (int)per;
+  return cudaSuccess;
+}
+
+template <typename T>
+__global__ void saturating_cast_kernel(const int32_t* __restrict__ src,
+                                       T* __restrict__ dst, long long count,
+                                       int lo, int hi) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) dst[i] = (T)min(max(src[i], lo), hi);
+}
+
+// out_bytes = 4: the int32 histogram is the output, nothing to do;
+// 2 / 1: one saturating cast of all `count` cells into int16 / int8 `out`.
+inline cudaError_t cast_out(const int32_t* hist, void* out, long long count,
+                            int out_bytes, cudaStream_t stream) {
+  if (out_bytes == 4 || count == 0) return cudaSuccess;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((count + threads - 1) / threads);
+  if (out_bytes == 2)
+    saturating_cast_kernel<int16_t><<<blocks, threads, 0, stream>>>(
+        hist, (int16_t*)out, count, -32768, 32767);
+  else if (out_bytes == 1)
+    saturating_cast_kernel<int8_t><<<blocks, threads, 0, stream>>>(
+        hist, (int8_t*)out, count, -128, 127);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+}  // namespace storm

@@ -11,8 +11,8 @@
 // R = 2048, p = 4) that is ~8.2e11 flops against ~0.2 GB of reads.
 //
 // Design:
-//   * Blocks tile (R-tile x n-chunk). Each thread owns one hash row r and keeps
-//     its p*(d+1) weights in registers for the whole chunk.
+//   * Blocks tile (R-tile x n-chunk x tenant). Each thread owns one hash row r
+//     and keeps its p*(d+1) weights in registers for the whole chunk.
 //   * A block stages a tile of points (and their pad = sqrt(max(0, 1-|z|^2)))
 //     in shared memory; every thread reads the same point, so the reads are
 //     broadcasts.
@@ -30,17 +30,23 @@
 //   * A narrow output (int16/int8) is one saturating cast after the histogram.
 //     Counters only grow, so one clamp of the whole stream's total equals the
 //     JAX per-batch saturating scan; one launch takes the whole masked stream.
+//   * The banked entry point (replacing `paired_hash_histogram_banked` of the
+//     same JAX file) runs the same kernel body over a tenant stack: grid axis
+//     z is the tenant, whose blocks read z[s], mask[s] and write table s under
+//     the one shared hash family, so slice s of a bank equals the lone insert
+//     of tenant s bit for bit. The lone entry point compiles the body without
+//     the tenant offsets (BANKED = false): carrying them cost the lone kernel
+//     7% of its time on the H100.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "insert_common.cuh"
 
 namespace {
 
-constexpr int kTilePoints = 64;   // points staged in shared memory per step
-constexpr int kBlocksPerSm = 8;   // target resident blocks when sizing the grid
+using storm::kTilePoints;
 
-template <int P, int DMAX>
+template <int P, int DMAX, bool BANKED>
 __global__ void paired_hist_kernel(const float* __restrict__ z,
                                    const float* __restrict__ w,
                                    const float* __restrict__ mask,
@@ -54,6 +60,12 @@ __global__ void paired_hist_kernel(const float* __restrict__ z,
   int* hs = reinterpret_cast<int*>(ms + kTilePoints);  // (B, blockDim)
 
   const int d2 = d + 2;  // w's feature count: [z, 0, pad]
+  if (BANKED) {  // this block's stream and table
+    const size_t tenant = blockIdx.z;
+    z += tenant * n * d;
+    mask += tenant * n;
+    hist += tenant * rows * B;
+  }
   const int tid = threadIdx.x;
   const int r = blockIdx.x * blockDim.x + tid;
   const bool active = r < rows;
@@ -124,53 +136,59 @@ __global__ void paired_hist_kernel(const float* __restrict__ z,
   }
 }
 
-template <typename T>
-__global__ void saturating_cast_kernel(const int32_t* __restrict__ src,
-                                       T* __restrict__ dst, int count, int lo,
-                                       int hi) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < count) dst[i] = (T)min(max(src[i], lo), hi);
-}
-
 template <int P, int DMAX>
 cudaError_t launch(const float* z, const float* w, const float* mask,
-                   int32_t* hist, int n, int d, int rows, cudaStream_t stream) {
-  // The histogram takes 2^p * threads ints of shared memory: at most 32 KB.
-  const int threads = std::min(128, 8192 >> P);
-  const size_t hist_smem = sizeof(int) * (size_t)(1 << P) * threads;
-  const size_t smem =
-      sizeof(float) * ((size_t)kTilePoints * d + 2 * kTilePoints) + hist_smem;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
+                   int32_t* hist, int n, int d, int rows, int tenants,
+                   cudaStream_t stream) {
+  const int threads = storm::insert_threads(P);
+  const size_t smem = sizeof(float) * ((size_t)kTilePoints * d + 2 * kTilePoints)
+                      + sizeof(int) * (size_t)(1 << P) * threads;
+  dim3 grid;
+  int chunk = 0;
+  cudaError_t err = storm::insert_grid(n, rows, threads, tenants, &grid, &chunk);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int gx = (rows + threads - 1) / threads;
-  const long long tiles = (n + kTilePoints - 1) / kTilePoints;
-  long long gy = ((long long)sms * kBlocksPerSm + gx - 1) / gx;
-  gy = std::max(1LL, std::min(gy, std::min(tiles, 65535LL)));
-  long long chunk = (tiles + gy - 1) / gy * kTilePoints;
-  gy = (n + chunk - 1) / chunk;
-  paired_hist_kernel<P, DMAX><<<dim3(gx, (unsigned)gy), threads, smem, stream>>>(
-      z, w, mask, hist, n, d, rows, (int)chunk);
+  if (tenants == 1)  // the lone kernel carries no tenant offsets
+    paired_hist_kernel<P, DMAX, false><<<grid, threads, smem, stream>>>(
+        z, w, mask, hist, n, d, rows, chunk);
+  else
+    paired_hist_kernel<P, DMAX, true><<<grid, threads, smem, stream>>>(
+        z, w, mask, hist, n, d, rows, chunk);
   return cudaGetLastError();
 }
 
 template <int DMAX>
 cudaError_t dispatch_p(int p, const float* z, const float* w, const float* mask,
-                       int32_t* hist, int n, int d, int rows,
+                       int32_t* hist, int n, int d, int rows, int tenants,
                        cudaStream_t stream) {
   switch (p) {
-    case 1: return launch<1, DMAX>(z, w, mask, hist, n, d, rows, stream);
-    case 2: return launch<2, DMAX>(z, w, mask, hist, n, d, rows, stream);
-    case 3: return launch<3, DMAX>(z, w, mask, hist, n, d, rows, stream);
-    case 4: return launch<4, DMAX>(z, w, mask, hist, n, d, rows, stream);
-    case 5: return launch<5, DMAX>(z, w, mask, hist, n, d, rows, stream);
-    case 6: return launch<6, DMAX>(z, w, mask, hist, n, d, rows, stream);
-    case 7: return launch<7, DMAX>(z, w, mask, hist, n, d, rows, stream);
-    case 8: return launch<8, DMAX>(z, w, mask, hist, n, d, rows, stream);
+    case 1: return launch<1, DMAX>(z, w, mask, hist, n, d, rows, tenants, stream);
+    case 2: return launch<2, DMAX>(z, w, mask, hist, n, d, rows, tenants, stream);
+    case 3: return launch<3, DMAX>(z, w, mask, hist, n, d, rows, tenants, stream);
+    case 4: return launch<4, DMAX>(z, w, mask, hist, n, d, rows, tenants, stream);
+    case 5: return launch<5, DMAX>(z, w, mask, hist, n, d, rows, tenants, stream);
+    case 6: return launch<6, DMAX>(z, w, mask, hist, n, d, rows, tenants, stream);
+    case 7: return launch<7, DMAX>(z, w, mask, hist, n, d, rows, tenants, stream);
+    case 8: return launch<8, DMAX>(z, w, mask, hist, n, d, rows, tenants, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The insert of `tenants` stacked streams, then the epilogue.
+cudaError_t insert(const float* z, const float* w, const float* mask,
+                   int32_t* hist, void* out, int tenants, int n, int d, int p,
+                   int rows, int out_bytes, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  if (n == 0)
+    ;  // empty streams leave the zeroed tables as they are
+  else if (d <= 16)
+    err = dispatch_p<16>(p, z, w, mask, hist, n, d, rows, tenants, s);
+  else if (d <= 32)
+    err = dispatch_p<32>(p, z, w, mask, hist, n, d, rows, tenants, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  return storm::cast_out(hist, out, ((long long)tenants * rows) << p,
+                         out_bytes, s);
 }
 
 }  // namespace
@@ -183,31 +201,20 @@ extern "C" {
 int storm_paired_hash_histogram(const void* z, const void* w, const void* mask,
                                 void* hist, void* out, int n, int d, int p,
                                 int rows, int out_bytes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaSuccess;
-  if (n == 0)
-    ;  // an empty stream leaves the zeroed table as it is
-  else if (d <= 16)
-    err = dispatch_p<16>(p, (const float*)z, (const float*)w,
-                         (const float*)mask, (int32_t*)hist, n, d, rows, s);
-  else if (d <= 32)
-    err = dispatch_p<32>(p, (const float*)z, (const float*)w,
-                         (const float*)mask, (int32_t*)hist, n, d, rows, s);
-  else
-    err = cudaErrorInvalidValue;
-  if (err != cudaSuccess || out_bytes == 4) return (int)err;
-  const int count = rows << p;
-  const int threads = 256;
-  const int blocks = (count + threads - 1) / threads;
-  if (out_bytes == 2)
-    saturating_cast_kernel<int16_t><<<blocks, threads, 0, s>>>(
-        (const int32_t*)hist, (int16_t*)out, count, -32768, 32767);
-  else if (out_bytes == 1)
-    saturating_cast_kernel<int8_t><<<blocks, threads, 0, s>>>(
-        (const int32_t*)hist, (int8_t*)out, count, -128, 127);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return (int)insert((const float*)z, (const float*)w, (const float*)mask,
+                     (int32_t*)hist, out, 1, n, d, p, rows, out_bytes,
+                     (cudaStream_t)stream);
+}
+
+// The banked insert: z (S, n, d), mask (S, n), hist (S, R, 2^p) int32 zeroed
+// by the caller, out as above over all S tables; w is shared.
+int storm_paired_hash_histogram_banked(const void* z, const void* w,
+                                       const void* mask, void* hist, void* out,
+                                       int tenants, int n, int d, int p,
+                                       int rows, int out_bytes, void* stream) {
+  return (int)insert((const float*)z, (const float*)w, (const float*)mask,
+                     (int32_t*)hist, out, tenants, n, d, p, rows, out_bytes,
+                     (cudaStream_t)stream);
 }
 
 const char* storm_cuda_error_string(int code) {

@@ -24,6 +24,12 @@
 // int64 sum is exact. Below 2^24 the result equals the fp32 mean bit for bit.
 // The projection is accumulated feature by feature in index order with
 // __fmul_rn/__fadd_rn, as the plain PyTorch version does.
+//
+// The banked entry point replaces `sketch_query_banked` (same JAX file): the
+// counts are an (S, R, 2^p) stack under one hash family and block qi gathers
+// from table sketch_idx[qi]. Both run one kernel body; the lone one is
+// compiled without the index (BANKED = false), so it keeps the lone
+// kernel's registers and time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,10 +37,11 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 
-template <typename C>
+template <typename C, bool BANKED>
 __global__ void sketch_query_kernel(const float* __restrict__ q,
                                     const float* __restrict__ w,
                                     const C* __restrict__ counts,
+                                    const int32_t* __restrict__ sketch_idx,
                                     float* __restrict__ out, int d, int p,
                                     int rows) {
   extern __shared__ float qs[];  // (d,)
@@ -45,6 +52,8 @@ __global__ void sketch_query_kernel(const float* __restrict__ q,
   __syncthreads();
 
   const int buckets = 1 << p;
+  if (BANKED)  // this point's table of the bank
+    counts += (size_t)sketch_idx[qi] * rows * buckets;
   long long total = 0;
   for (int r = tid; r < rows; r += blockDim.x) {
     int code = 0;
@@ -69,6 +78,32 @@ __global__ void sketch_query_kernel(const float* __restrict__ q,
   }
 }
 
+template <bool BANKED>
+cudaError_t query(const float* q, const float* w, const void* counts,
+                  const int32_t* sketch_idx, float* out, int m, int d, int p,
+                  int rows, int count_bytes, cudaStream_t s) {
+  if (m == 0) return cudaSuccess;
+  const size_t smem = sizeof(float) * (size_t)d;
+  const int threads = rows >= kMaxThreads ? kMaxThreads : (rows + 31) / 32 * 32;
+  switch (count_bytes) {
+    case 4:
+      sketch_query_kernel<int32_t, BANKED><<<m, threads, smem, s>>>(
+          q, w, (const int32_t*)counts, sketch_idx, out, d, p, rows);
+      break;
+    case 2:
+      sketch_query_kernel<int16_t, BANKED><<<m, threads, smem, s>>>(
+          q, w, (const int16_t*)counts, sketch_idx, out, d, p, rows);
+      break;
+    case 1:
+      sketch_query_kernel<int8_t, BANKED><<<m, threads, smem, s>>>(
+          q, w, (const int8_t*)counts, sketch_idx, out, d, p, rows);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -78,30 +113,19 @@ extern "C" {
 int storm_sketch_query(const void* q, const void* w, const void* counts,
                        void* out, int m, int d, int p, int rows,
                        int count_bytes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (m == 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * (size_t)d;
-  const int threads = rows >= kMaxThreads ? kMaxThreads : (rows + 31) / 32 * 32;
-  const float* qf = (const float*)q;
-  const float* wf = (const float*)w;
-  float* of = (float*)out;
-  switch (count_bytes) {
-    case 4:
-      sketch_query_kernel<int32_t><<<m, threads, smem, s>>>(
-          qf, wf, (const int32_t*)counts, of, d, p, rows);
-      break;
-    case 2:
-      sketch_query_kernel<int16_t><<<m, threads, smem, s>>>(
-          qf, wf, (const int16_t*)counts, of, d, p, rows);
-      break;
-    case 1:
-      sketch_query_kernel<int8_t><<<m, threads, smem, s>>>(
-          qf, wf, (const int8_t*)counts, of, d, p, rows);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)query<false>((const float*)q, (const float*)w, counts, nullptr,
+                    (float*)out, m, d, p, rows, count_bytes,
+                    (cudaStream_t)stream);
+}
+
+// The banked query: counts (S, R, 2^p), sketch_idx (m,) int32 in [0, S),
+// checked by the caller; the rest as above.
+int storm_sketch_query_banked(const void* q, const void* w, const void* counts,
+                              const void* sketch_idx, void* out, int m, int d,
+                              int p, int rows, int count_bytes, void* stream) {
+  return (int)query<true>((const float*)q, (const float*)w, counts,
+                          (const int32_t*)sketch_idx, (float*)out, m, d, p, rows,
+                    count_bytes, (cudaStream_t)stream);
 }
 
 const char* storm_cuda_error_string(int code) {

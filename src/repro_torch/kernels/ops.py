@@ -1,5 +1,5 @@
-"""Dispatch over the port's kernels (port of the lone-sketch half of
-``repro.kernels.ops``).
+"""Dispatch over the port's kernels (port of ``repro.kernels.ops`` without
+``srp_hash``).
 
 ``mode`` is one of:
 
@@ -42,13 +42,28 @@ def from_lsh_params(params: lsh.LSHParams) -> Tensor:
     return params.projections.permute(1, 2, 0).contiguous()
 
 
-def _ones_mask(n: int, device) -> Tensor:
-    return torch.ones((n,), dtype=torch.float32, device=device)
+def _ones_mask(shape, device) -> Tensor:
+    return torch.ones(shape, dtype=torch.float32, device=device)
 
 
 def _mask_count(mask: Tensor) -> Tensor:
-    """Logical inserts of a masked stream: the sum of ``int(mask[i])``."""
-    return mask.to(torch.int32).sum(dtype=torch.int64).to(torch.int32)
+    """Logical inserts of a masked stream (per tenant for an ``(S, n)``
+    mask): the sum of ``int(mask[i])``."""
+    return mask.to(torch.int32).sum(-1, dtype=torch.int64).to(torch.int32)
+
+
+def _insert(lone, plain, x: Tensor, w: Tensor, mask: Tensor, mode: str,
+            out_dtype: torch.dtype) -> Tensor:
+    """One insert through ``lone`` (the kernel wrapper) or ``plain``.
+
+    uint16 has no kernel output: it saturates the int32 table once.
+    """
+    if out_dtype == torch.uint16:
+        return sketch_lib.saturating_cast(
+            _insert(lone, plain, x, w, mask, mode, torch.int32), out_dtype)
+    x = x.to(torch.float32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    return (plain if _plain(mode, x) else lone)(x, w, mask, out_dtype)
 
 
 def paired_hash_histogram(
@@ -61,57 +76,120 @@ def paired_hash_histogram(
     ``(p, d + 2, R)``.
     """
     if mask is None:
-        mask = _ones_mask(z.shape[0], z.device)
-    if out_dtype == torch.uint16:  # no kernel output: saturate the int32 table
-        return sketch_lib.saturating_cast(
-            paired_hash_histogram(z, w, mask, mode=mode), out_dtype)
-    z = z.to(torch.float32).contiguous()
-    mask = mask.to(torch.float32).contiguous()
-    if _plain(mode, z):
-        return ref.paired_hash_histogram(z, w, mask, out_dtype)
-    return histogram_kernel.paired_hash_histogram(z, w, mask, out_dtype)
+        mask = _ones_mask(z.shape[:1], z.device)
+    return _insert(histogram_kernel.paired_hash_histogram,
+                   ref.paired_hash_histogram, z, w, mask, mode, out_dtype)
 
 
-def sketch_query(q: Tensor, w: Tensor, counts: Tensor, mode: str = "auto"
-                 ) -> Tensor:
+def hash_histogram(
+    x: Tensor, w: Tensor, mask: Optional[Tensor] = None, mode: str = "auto",
+    out_dtype: torch.dtype = torch.int32,
+) -> Tensor:
+    """Single-sided insert: ``(R, 2**p)`` counts of the masked stream.
+
+    ``x`` is pre-scaled and already augmented; ``w`` is ``(p, d, R)``.
+    """
+    if mask is None:
+        mask = _ones_mask(x.shape[:1], x.device)
+    return _insert(histogram_kernel.hash_histogram, ref.hash_histogram, x, w,
+                   mask, mode, out_dtype)
+
+
+def paired_hash_histogram_banked(
+    z: Tensor, w: Tensor, mask: Optional[Tensor] = None, mode: str = "auto",
+    out_dtype: torch.dtype = torch.int32,
+) -> Tensor:
+    """Banked PRP insert of an ``(S, n, d)`` stack: ``(S, R, 2**p)`` counts.
+
+    One shared hash family; slice ``s`` equals
+    ``paired_hash_histogram(z[s], w, mask[s])``.
+    """
+    if mask is None:
+        mask = _ones_mask(z.shape[:2], z.device)
+    return _insert(histogram_kernel.paired_hash_histogram_banked,
+                   ref.paired_hash_histogram_banked, z, w, mask, mode,
+                   out_dtype)
+
+
+def hash_histogram_banked(
+    x: Tensor, w: Tensor, mask: Optional[Tensor] = None, mode: str = "auto",
+    out_dtype: torch.dtype = torch.int32,
+) -> Tensor:
+    """Banked single-sided insert of an ``(S, n, d)`` stack of augmented
+    rows: ``(S, R, 2**p)``; slice ``s`` equals ``hash_histogram(x[s], w,
+    mask[s])``."""
+    if mask is None:
+        mask = _ones_mask(x.shape[:2], x.device)
+    return _insert(histogram_kernel.hash_histogram_banked,
+                   ref.hash_histogram_banked, x, w, mask, mode, out_dtype)
+
+
+def sketch_query(q: Tensor, w: Tensor, counts: Tensor, mode: str = "auto",
+                 sketch_idx: Optional[Tensor] = None) -> Tensor:
     """Batched RACE query: ``(m,)`` mean counts at the query codes.
 
-    Any batch size goes to the kernel. uint16 counters (which the kernel
-    does not read) are widened to int32 first.
+    Any batch size goes to the kernel. With ``sketch_idx`` (``(m,)``
+    integers) the query is banked: ``counts`` is an ``(S, R, B)`` stack and
+    point ``i`` reads table ``sketch_idx[i]``. uint16 counters (which the
+    kernel does not read) are widened to int32 first.
     """
-    if counts.ndim != 2:
-        raise ValueError(f"counts must be (R, B); got shape "
-                         f"{tuple(counts.shape)} (banked queries are not "
-                         "ported yet)")
+    if (sketch_idx is not None) != (counts.ndim == 3) or counts.ndim not in (
+            2, 3):
+        raise ValueError(f"banked (S, R, B) counts go with a sketch_idx and "
+                         f"(R, B) counts without one; got shape "
+                         f"{tuple(counts.shape)}, sketch_idx "
+                         f"{'given' if sketch_idx is not None else 'None'}")
     if counts.dtype == torch.uint16:
         counts = counts.to(torch.int32)
     q = q.to(torch.float32).contiguous()
-    if _plain(mode, q):
-        return ref.sketch_query(q, w, counts)
-    return query_kernel.sketch_query(q, w, counts.contiguous())
+    plain = _plain(mode, q)
+    if sketch_idx is None:
+        if plain:
+            return ref.sketch_query(q, w, counts)
+        return query_kernel.sketch_query(q, w, counts.contiguous())
+    if plain:
+        return ref.sketch_query_banked(q, w, counts, sketch_idx)
+    return query_kernel.sketch_query_banked(q, w, counts.contiguous(),
+                                            sketch_idx)
 
 
 def build_sketch(
     params: lsh.LSHParams, z: Tensor, mask: Optional[Tensor] = None,
-    mode: str = "auto",
+    paired: bool = True, mode: str = "auto",
 ) -> sketch_lib.Sketch:
-    """One-shot fused paired sketch of pre-scaled data ``z`` (int32 counts)."""
-    return sketch_stream(params, z, mask, mode=mode)
+    """One-shot fused sketch of pre-scaled data ``z`` (int32 counts; PRP
+    when paired, else ``z`` is already augmented)."""
+    return sketch_stream(params, z, mask, paired=paired, mode=mode)
 
 
 def query_theta_with_weights(
-    sk: sketch_lib.Sketch, w: Tensor, theta_tilde: Tensor, paired: bool = True,
-    mode: str = "auto",
+    sk, w: Tensor, theta_tilde: Tensor, paired: bool = True,
+    mode: str = "auto", sketch_idx: Optional[Tensor] = None,
 ) -> Tensor:
     """Surrogate-risk estimate with pre-transposed kernel weights.
 
     ``w`` is the ``(p, d, R)`` layout from :func:`from_lsh_params`. Sessions
     that query one frozen hash many times (a fit's DFO steps) convert the
     layout once and pass ``w`` to every call.
+
+    ``sk`` may be a :class:`~repro_torch.core.sketch.SketchBank`; then
+    ``sketch_idx`` (``(m,)``, one entry per row of a 2-D ``theta_tilde``)
+    routes each point to its table, and the denominator is that sketch's
+    own ``n`` (doubled when paired).
     """
+    banked = isinstance(sk, sketch_lib.SketchBank)
+    if banked != (sketch_idx is not None):
+        raise ValueError("sketch_idx must be given iff sk is a SketchBank")
     q = lsh.augment_query(lsh.normalize_query(theta_tilde))
-    mean = sketch_query(torch.atleast_2d(q), w, sk.counts, mode=mode)
-    est = mean / sketch_lib.denominator(sk.n, paired)
+    if banked:
+        if theta_tilde.ndim != 2:
+            raise ValueError("banked queries need a (m, dim) theta batch")
+        mean = sketch_query(q, w, sk.counts, mode=mode, sketch_idx=sketch_idx)
+        n_per = sk.n[sketch_idx.long()]
+    else:
+        mean = sketch_query(torch.atleast_2d(q), w, sk.counts, mode=mode)
+        n_per = sk.n
+    est = mean / sketch_lib.denominator(n_per, paired)
     return est[0] if theta_tilde.ndim == 1 else est
 
 
@@ -132,18 +210,42 @@ def sketch_stream(
     mode: str = "auto",
     dtype: torch.dtype = torch.int32,
 ) -> sketch_lib.Sketch:
-    """Stream a whole dataset through the fused paired insert.
+    """Stream a whole dataset through one fused insert (paired or
+    single-sided; for single-sided inserts ``z`` is already augmented).
 
     ``repro.kernels.ops.sketch_stream`` scans batches with a saturating carry.
     Integer adds commute and the saturation is monotone, so one launch over
     the whole masked stream gives the same counts (up to the projections'
     sign ties) at the cost of one launch.
     """
-    if not paired:
-        raise NotImplementedError(
-            "single-sided inserts (hash_histogram) are not ported yet")
     if mask is None:
-        mask = _ones_mask(z.shape[0], z.device)
-    counts = paired_hash_histogram(z, from_lsh_params(params), mask,
-                                   mode=mode, out_dtype=dtype)
+        mask = _ones_mask(z.shape[:1], z.device)
+    insert = paired_hash_histogram if paired else hash_histogram
+    counts = insert(z, from_lsh_params(params), mask, mode=mode,
+                    out_dtype=dtype)
     return sketch_lib.Sketch(counts=counts, n=_mask_count(mask))
+
+
+def sketch_insert_banked(
+    params: lsh.LSHParams,
+    zs: Tensor,
+    mask: Optional[Tensor] = None,
+    paired: bool = True,
+    mode: str = "auto",
+    dtype: torch.dtype = torch.int32,
+) -> sketch_lib.SketchBank:
+    """Sketch ``S`` tenant streams under one shared hash family in one launch.
+
+    ``zs: (S, n, dim)`` is a sketch-major stack (ragged tenants mask-padded by
+    ``core.sketch.stack_ragged``); masked rows are hashed but add nothing,
+    and each tenant's ``n`` is its mask mass. ``repro.kernels.ops`` scans
+    batches of the stack; one launch over the whole masked stack gives the
+    same counts, as in :func:`sketch_stream`. Slice ``s`` equals
+    ``sketch_stream(params, zs[s], mask[s])``.
+    """
+    if mask is None:
+        mask = _ones_mask(zs.shape[:2], zs.device)
+    insert = paired_hash_histogram_banked if paired else hash_histogram_banked
+    counts = insert(zs, from_lsh_params(params), mask, mode=mode,
+                    out_dtype=dtype)
+    return sketch_lib.SketchBank(counts=counts, n=_mask_count(mask))

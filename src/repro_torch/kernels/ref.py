@@ -99,6 +99,26 @@ def _masked_histogram(codes: Tensor, inc: Tensor, buckets: int) -> Tensor:
     return flat.reshape(r, buckets)
 
 
+def hash_histogram(x: Tensor, w: Tensor, mask: Tensor,
+                   out_dtype: torch.dtype = torch.int32) -> Tensor:
+    """Single-sided insert: ``(R, 2**p)`` counts of the SRP codes of ``x``.
+
+    ``x: (n, d)`` is already augmented (``lsh.augment_data``), so every
+    feature is projected, the zero one included. Point ``i`` adds
+    ``int(mask[i])`` to one bucket of every row; narrow dtypes saturate once
+    at the end.
+    """
+    r = w.shape[2]
+    buckets = 1 << w.shape[0]
+    inc = mask.to(torch.int32)
+    hist = torch.zeros((r, buckets), dtype=torch.int32, device=x.device)
+    chunk = max(1, _CHUNK_CELLS // r)
+    for start in range(0, x.shape[0], chunk):
+        codes = srp_hash(x[start:start + chunk], w)
+        hist += _masked_histogram(codes, inc[start:start + chunk], buckets)
+    return _out_cast(hist, out_dtype)
+
+
 def paired_hash_histogram(z: Tensor, w: Tensor, mask: Tensor,
                           out_dtype: torch.dtype = torch.int32) -> Tensor:
     """Fused antithetic PRP insert: ``(R, 2**p)`` counts in ``out_dtype``.
@@ -119,6 +139,21 @@ def paired_hash_histogram(z: Tensor, w: Tensor, mask: Tensor,
     return _out_cast(hist, out_dtype)
 
 
+def hash_histogram_banked(x: Tensor, w: Tensor, mask: Tensor,
+                          out_dtype: torch.dtype = torch.int32) -> Tensor:
+    """``(S, R, 2**p)``: slice ``s`` is ``hash_histogram(x[s], w, mask[s])``."""
+    return torch.stack([hash_histogram(x[s], w, mask[s], out_dtype)
+                        for s in range(x.shape[0])])
+
+
+def paired_hash_histogram_banked(z: Tensor, w: Tensor, mask: Tensor,
+                                 out_dtype: torch.dtype = torch.int32
+                                 ) -> Tensor:
+    """``(S, R, 2**p)``: slice ``s`` is ``paired_hash_histogram(z[s], w, mask[s])``."""
+    return torch.stack([paired_hash_histogram(z[s], w, mask[s], out_dtype)
+                        for s in range(z.shape[0])])
+
+
 def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
     """Batched RACE gather: ``(m,)`` fp32 mean over rows of ``counts[r, code_r]``.
 
@@ -130,3 +165,19 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
     codes = srp_hash(q, w)
     rows = torch.arange(counts.shape[0], device=q.device)
     return mean_count(counts[rows[None, :], codes.long()])
+
+
+def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
+                        sketch_idx: Tensor) -> Tensor:
+    """Banked RACE gather: point ``i`` reads table ``sketch_idx[i]``.
+
+    Args:
+      q: ``(m, d)`` query vectors (already normalized and augmented).
+      w: ``(p, d, R)`` hyperplane normals, shared by the bank.
+      counts: ``(S, R, 2**p)`` counters (int32, int16 or int8).
+      sketch_idx: ``(m,)`` integer table index of each point.
+    """
+    codes = srp_hash(q, w)
+    rows = torch.arange(counts.shape[1], device=q.device)
+    return mean_count(counts[sketch_idx.long()[:, None], rows[None, :],
+                             codes.long()])

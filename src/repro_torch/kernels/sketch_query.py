@@ -1,10 +1,10 @@
 """Batched RACE query: hash, gather, mean over rows (port of
-``repro.kernels.sketch_query.sketch_query``).
+``repro.kernels.sketch_query``: ``sketch_query`` and ``sketch_query_banked``).
 
-On CUDA tensors the wrapper launches the Hopper kernel in
+On CUDA tensors the wrappers launch the Hopper kernel in
 ``csrc/sketch_query.cu`` (its source note says what bounds it and how it is
-laid out); on CPU tensors it runs the plain PyTorch version,
-``ref.sketch_query``. There is no fallback from one to the other.
+laid out); on CPU tensors they run the plain PyTorch versions in ``ref``.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -25,9 +25,12 @@ MAX_PLANES = 30
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("sketch_query")
-    fn = lib.storm_sketch_query
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lone = lib.storm_sketch_query
+    lone.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    banked = lib.storm_sketch_query_banked
+    banked.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+    lone.restype = banked.restype = ctypes.c_int
     return lib
 
 
@@ -46,10 +49,17 @@ def _check_cuda(q: Tensor, w: Tensor, counts: Tensor) -> None:
         raise ValueError(f"need q (m, d), w (p, d, R); got {tuple(q.shape)}, "
                          f"{tuple(w.shape)}")
     p, _, rows = w.shape
-    if not 1 <= p <= MAX_PLANES or counts.shape != (rows, 1 << p):
-        raise ValueError(f"counts must be (R, 2**p) = ({rows}, {1 << p}) "
+    if not 1 <= p <= MAX_PLANES or counts.shape[-2:] != (rows, 1 << p):
+        raise ValueError(f"counts must end in (R, 2**p) = ({rows}, {1 << p}) "
                          f"with 1 <= p <= {MAX_PLANES}; got "
                          f"{tuple(counts.shape)}")
+
+
+def _on_cuda(q: Tensor) -> bool:
+    """False for CPU tensors (plain version); raises for any other device."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return q.device.type == "cuda"
 
 
 def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
@@ -60,11 +70,11 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
       w: ``(p, d, R)`` hyperplane normals.
       counts: ``(R, 2**p)`` int32, int16 or int8 counters.
     """
-    if q.device.type == "cpu":
+    if not _on_cuda(q):
         return ref.sketch_query(q, w, counts)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, w, counts)
+    if counts.ndim != 2:
+        raise ValueError(f"counts must be (R, B); got {tuple(counts.shape)}")
     p, d, rows = w.shape
     out = torch.empty((q.shape[0],), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -78,4 +88,45 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
     return out
 
 
+def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
+                        sketch_idx: Tensor) -> Tensor:
+    """``(m,)`` fp32: point ``i`` is the mean of table ``sketch_idx[i]``.
+
+    Args:
+      q: ``(m, d)`` query vectors (already normalized and augmented).
+      w: ``(p, d, R)`` hyperplane normals, shared by the bank.
+      counts: ``(S, R, 2**p)`` int32, int16 or int8 counters.
+      sketch_idx: ``(m,)`` integer table index per point, each in
+        ``[0, S)`` (checked here: one read back to the host per call).
+    """
+    if counts.ndim != 3 or sketch_idx.shape != (q.shape[0],):
+        raise ValueError(f"need counts (S, R, B) and sketch_idx (m,); got "
+                         f"{tuple(counts.shape)}, {tuple(sketch_idx.shape)}")
+    if sketch_idx.dtype.is_floating_point or sketch_idx.device != q.device:
+        raise ValueError(f"sketch_idx must be an integer tensor on "
+                         f"{q.device}; got {sketch_idx.dtype} on "
+                         f"{sketch_idx.device}")
+    idx = sketch_idx.to(torch.int32).contiguous()
+    if idx.numel():
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+        if lo < 0 or hi >= counts.shape[0]:
+            raise ValueError(f"sketch_idx must lie in [0, {counts.shape[0]});"
+                             f" got {lo}..{hi}")
+    if not _on_cuda(q):
+        return ref.sketch_query_banked(q, w, counts, idx)
+    _check_cuda(q, w, counts)
+    p, d, rows = w.shape
+    out = torch.empty((q.shape[0],), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    code = lib.storm_sketch_query_banked(
+        q.data_ptr(), w.data_ptr(), counts.data_ptr(), idx.data_ptr(),
+        out.data_ptr(), q.shape[0], d, p, rows, _COUNT_BYTES[counts.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(code, lib, "sketch_query_banked")
+    sketch_query_banked.launches += 1
+    return out
+
+
 sketch_query.launches = 0
+sketch_query_banked.launches = 0

@@ -1,10 +1,13 @@
-"""Fused paired hash + histogram: the STORM insert (port of
-``repro.kernels.storm_sketch.paired_hash_histogram``).
+"""Fused hash + histogram: the STORM inserts (port of
+``repro.kernels.storm_sketch``).
 
-On CUDA tensors the wrapper launches the Hopper kernel in
-``csrc/paired_hash_histogram.cu`` (its source note says what bounds it and
-how it is laid out); on CPU tensors it runs the plain PyTorch version,
-``ref.paired_hash_histogram``. There is no fallback from one to the other.
+Four wrappers, one per TPU kernel: the paired (PRP) insert and the
+single-sided insert, each for one stream and for a tenant stack under one
+shared hash family. On CUDA tensors each launches its Hopper kernel
+(``csrc/paired_hash_histogram.cu`` and ``csrc/hash_histogram.cu``; their
+source notes say what bounds them and how they are laid out); on CPU tensors
+it runs the plain PyTorch version in ``ref``. There is no fallback from one to
+the other.
 """
 
 from __future__ import annotations
@@ -20,39 +23,82 @@ Tensor = torch.Tensor
 
 _OUT_BYTES = {torch.int32: 4, torch.int16: 2, torch.int8: 1}
 MAX_PLANES = 8
-MAX_FEATURES = 32  # d: the kernel keeps a row's weights in registers
+MAX_FEATURES = 32  # d: the kernels keep a row's weights in registers
+MAX_TENANTS = 65535  # the grid's z extent
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("paired_hash_histogram")
-    fn = lib.storm_paired_hash_histogram
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _lib(stem: str) -> ctypes.CDLL:
+    """The library of ``csrc/<stem>.cu`` with both entry points typed."""
+    lib = _build.library(stem)
+    lone = getattr(lib, f"storm_{stem}")
+    lone.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    banked = getattr(lib, f"storm_{stem}_banked")
+    banked.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+    lone.restype = banked.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda(z: Tensor, w: Tensor, mask: Tensor, out_dtype) -> None:
-    if not (z.device == w.device == mask.device):
-        raise ValueError(f"z, w and mask must share one device; got "
-                         f"{z.device}, {w.device}, {mask.device}")
-    for name, t in (("z", z), ("w", w), ("mask", mask)):
+def _check_cuda(x: Tensor, w: Tensor, mask: Tensor, out_dtype,
+                paired: bool, banked: bool) -> None:
+    if not (x.device == w.device == mask.device):
+        raise ValueError(f"points, w and mask must share one device; got "
+                         f"{x.device}, {w.device}, {mask.device}")
+    for name, t in (("points", x), ("w", w), ("mask", mask)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32; got "
                              f"{t.dtype}, contiguous={t.is_contiguous()}")
-    if z.ndim != 2 or w.ndim != 3 or mask.shape != (z.shape[0],):
-        raise ValueError(f"need z (n, d), w (p, d+2, R), mask (n,); got "
-                         f"{tuple(z.shape)}, {tuple(w.shape)}, "
+    ndim = 3 if banked else 2
+    if x.ndim != ndim or w.ndim != 3 or mask.shape != x.shape[:-1]:
+        lead = "S, n" if banked else "n"
+        raise ValueError(f"need points ({lead}, d), w (p, d', R), mask "
+                         f"({lead}); got {tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(mask.shape)}")
-    p, d_aug, _ = w.shape
-    if d_aug != z.shape[1] + 2:
-        raise ValueError(f"w has {d_aug} features; z needs {z.shape[1] + 2}")
-    if not 1 <= p <= MAX_PLANES or z.shape[1] > MAX_FEATURES:
+    d = x.shape[-1]
+    p, d_w, _ = w.shape
+    want = d + 2 if paired else d
+    if d_w != want:
+        raise ValueError(f"w has {d_w} features; the points need {want}")
+    if not 1 <= p <= MAX_PLANES or d > MAX_FEATURES:
         raise ValueError(f"the kernel takes 1 <= p <= {MAX_PLANES} and "
-                         f"d <= {MAX_FEATURES}; got p={p}, d={z.shape[1]}")
+                         f"d <= {MAX_FEATURES}; got p={p}, d={d}")
+    if x.shape[-2] >= 1 << 31 or (banked and x.shape[0] > MAX_TENANTS):
+        raise ValueError(f"too many points or tenants: {tuple(x.shape)}")
     if out_dtype not in _OUT_BYTES:
         raise ValueError(f"out_dtype must be int32, int16 or int8; got "
                          f"{out_dtype}")
+
+
+def _launch(stem: str, x: Tensor, w: Tensor, mask: Tensor, out_dtype,
+            paired: bool, banked: bool) -> Tensor:
+    """Check, allocate the zeroed int32 tables, and launch one insert."""
+    _check_cuda(x, w, mask, out_dtype, paired, banked)
+    p, _, rows = w.shape
+    lead = x.shape[:1] if banked else ()
+    hist = torch.zeros(lead + (rows, 1 << p), dtype=torch.int32,
+                       device=x.device)
+    out = hist if out_dtype == torch.int32 else torch.empty_like(
+        hist, dtype=out_dtype)
+    lib = _lib(stem)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), w.data_ptr(), mask.data_ptr(), hist.data_ptr(),
+            out.data_ptr())
+    dims = (x.shape[-2], x.shape[-1], p, rows, _OUT_BYTES[out_dtype])
+    if banked:
+        code = getattr(lib, f"storm_{stem}_banked")(*ptrs, x.shape[0], *dims,
+                                                    stream)
+    else:
+        code = getattr(lib, f"storm_{stem}")(*ptrs, *dims, stream)
+    _build.check(code, lib, stem + ("_banked" if banked else ""))
+    return out
+
+
+def _on_cuda(x: Tensor) -> bool:
+    """False for CPU tensors (plain version); raises for any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type == "cuda"
 
 
 def paired_hash_histogram(z: Tensor, w: Tensor, mask: Tensor,
@@ -68,24 +114,66 @@ def paired_hash_histogram(z: Tensor, w: Tensor, mask: Tensor,
     One launch takes the whole stream: counts only grow, so a single
     saturation of the total equals the per-batch saturating scan.
     """
-    if z.device.type == "cpu":
+    if not _on_cuda(z):
         return ref.paired_hash_histogram(z, w, mask, out_dtype)
-    if z.device.type != "cuda":
-        raise ValueError(f"unsupported device {z.device}")
-    _check_cuda(z, w, mask, out_dtype)
-    p, _, rows = w.shape
-    hist = torch.zeros((rows, 1 << p), dtype=torch.int32, device=z.device)
-    out = hist if out_dtype == torch.int32 else torch.empty_like(
-        hist, dtype=out_dtype)
-    lib = _lib()
-    code = lib.storm_paired_hash_histogram(
-        z.data_ptr(), w.data_ptr(), mask.data_ptr(), hist.data_ptr(),
-        out.data_ptr(), z.shape[0], z.shape[1], p, rows,
-        _OUT_BYTES[out_dtype], torch.cuda.current_stream(z.device).cuda_stream,
-    )
-    _build.check(code, lib, "paired_hash_histogram")
+    out = _launch("paired_hash_histogram", z, w, mask, out_dtype,
+                  paired=True, banked=False)
     paired_hash_histogram.launches += 1
     return out
 
 
+def hash_histogram(x: Tensor, w: Tensor, mask: Tensor,
+                   out_dtype: torch.dtype = torch.int32) -> Tensor:
+    """Single-sided insert of a masked stream: ``(R, 2**p)`` counts.
+
+    Args:
+      x: ``(n, d)`` pre-scaled and already augmented points
+        (``lsh.augment_data``).
+      w: ``(p, d, R)`` hyperplane normals.
+      mask: ``(n,)`` validity mask in {0, 1}.
+      out_dtype: int32, or int16/int8 saturated once at the end.
+    """
+    if not _on_cuda(x):
+        return ref.hash_histogram(x, w, mask, out_dtype)
+    out = _launch("hash_histogram", x, w, mask, out_dtype, paired=False,
+                  banked=False)
+    hash_histogram.launches += 1
+    return out
+
+
+def paired_hash_histogram_banked(z: Tensor, w: Tensor, mask: Tensor,
+                                 out_dtype: torch.dtype = torch.int32
+                                 ) -> Tensor:
+    """:func:`paired_hash_histogram` over a tenant stack in one launch.
+
+    ``z: (S, n, d)``, ``mask: (S, n)``, one shared ``w``; slice ``s`` of the
+    ``(S, R, 2**p)`` result equals the lone insert of ``z[s], mask[s]``.
+    """
+    if not _on_cuda(z):
+        return ref.paired_hash_histogram_banked(z, w, mask, out_dtype)
+    out = _launch("paired_hash_histogram", z, w, mask, out_dtype,
+                  paired=True, banked=True)
+    paired_hash_histogram_banked.launches += 1
+    return out
+
+
+def hash_histogram_banked(x: Tensor, w: Tensor, mask: Tensor,
+                          out_dtype: torch.dtype = torch.int32) -> Tensor:
+    """:func:`hash_histogram` over a tenant stack in one launch.
+
+    ``x: (S, n, d)`` (already augmented), ``mask: (S, n)``, one shared
+    ``w``; slice ``s`` of the ``(S, R, 2**p)`` result equals the lone insert
+    of ``x[s], mask[s]``.
+    """
+    if not _on_cuda(x):
+        return ref.hash_histogram_banked(x, w, mask, out_dtype)
+    out = _launch("hash_histogram", x, w, mask, out_dtype, paired=False,
+                  banked=True)
+    hash_histogram_banked.launches += 1
+    return out
+
+
 paired_hash_histogram.launches = 0
+hash_histogram.launches = 0
+paired_hash_histogram_banked.launches = 0
+hash_histogram_banked.launches = 0

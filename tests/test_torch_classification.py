@@ -1,0 +1,362 @@
+"""The port's single-sided losses against ``repro``: the single-sided insert's
+plain version, the margin/logistic/k-means surrogates, ``classification.fit``
+and ``erm.fit_surrogate`` on shared draws, the EXPERIMENTS.md accuracy
+anchors, the datasets and the baselines.
+
+Hash families and DFO draws cross through ``repro_torch.interop``
+(``torch_parity``); the JAX Pallas kernels run in interpret mode.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import baselines as jbaselines
+from repro.core import classification as jclassification
+from repro.core import dfo as jdfo
+from repro.core import erm as jerm
+from repro.core import losses as jlosses
+from repro.core import lsh as jlsh
+from repro.core import sketch as jsk
+from repro.data import datasets as jdatasets
+from repro.kernels import ref as jref
+from repro.kernels import storm_sketch as jstorm
+from repro_torch import interop
+from repro_torch.core import baselines, classification, dfo, erm, losses, lsh
+from repro_torch.core import sketch as sketch_lib
+from repro_torch.data import datasets
+from repro_torch.device import generator
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import storm_sketch as histogram_kernel
+from torch_parity import (CPU, fleet_draws, jax_params, t, tenant_draws,
+                          unit_ball_rows)
+
+
+def _port_dfo(cfg):
+    return dfo.DFOConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+
+
+def _augmented(seed, n, d):
+    return np.asarray(jlsh.augment_data(jnp.asarray(unit_ball_rows(seed, n,
+                                                                   d))))
+
+
+# -- the single-sided insert -----------------------------------------------------
+
+@pytest.mark.parametrize("out", ["int32", "int16", "int8"])
+@pytest.mark.parametrize("seed,n,d,p,r,masked", [
+    (0, 41, 3, 1, 19, True),
+    (1, 130, 6, 2, 45, False),
+    (2, 61, 4, 8, 13, True),
+])
+def test_hash_histogram_equals_jax(seed, n, d, p, r, masked, out):
+    x = _augmented(seed, n, d)
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(p, d + 2, r)).astype(np.float32)
+    mask = (rng.uniform(size=n) < 0.7 if masked else np.ones(n)).astype(
+        np.float32)
+    tdt, jdt = getattr(torch, out), jnp.dtype(out)
+    got = ref.hash_histogram(t(x), t(w), t(mask), tdt)
+    want_kernel = jstorm.hash_histogram(jnp.asarray(x), jnp.asarray(w),
+                                        jnp.asarray(mask), block_n=32,
+                                        block_r=16, out_dtype=jdt,
+                                        interpret=True)
+    want_ref = jref.hash_histogram(jnp.asarray(x), jnp.asarray(w),
+                                   jnp.asarray(mask), out_dtype=jdt)
+    assert got.dtype == tdt and got.shape == (r, 1 << p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_kernel))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_ref))
+    if out == "int32":
+        np.testing.assert_array_equal(got.sum(1).numpy(),
+                                      np.full(r, int(mask.sum())))
+    # The wrapper runs the plain version on the CPU, and counts no launch.
+    before = histogram_kernel.hash_histogram.launches
+    assert torch.equal(histogram_kernel.hash_histogram(t(x), t(w), t(mask),
+                                                       tdt), got)
+    assert histogram_kernel.hash_histogram.launches == before
+
+
+def test_hash_histogram_chunks_exactly(monkeypatch):
+    x = t(_augmented(3, 90, 4))
+    w = t(np.random.default_rng(3).normal(size=(2, 6, 20)).astype(np.float32))
+    mask = torch.ones(90)
+    whole = ref.hash_histogram(x, w, mask)
+    monkeypatch.setattr(ref, "_CHUNK_CELLS", 20 * 7)  # 7 points per chunk
+    assert torch.equal(ref.hash_histogram(x, w, mask), whole)
+
+
+@pytest.mark.parametrize("engine", ["scan", "kernel"])
+def test_single_sided_sketch_dataset_equals_jax(engine):
+    jp, tp = jax_params(4, 48, 2, 7)
+    x = _augmented(4, 333, 5)
+    want = jsk.sketch_dataset(jp, jnp.asarray(x), batch=64, paired=False,
+                              engine="scan")
+    got = sketch_lib.sketch_dataset(tp, t(x), batch=64, paired=False,
+                                    engine=engine, device=CPU)
+    assert int(got.n) == 333
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(want.counts))
+    mask = torch.ones(333)
+    mask[300:] = 0
+    sk = ops.sketch_stream(tp, t(x), mask, paired=False)
+    assert int(sk.n) == 300
+    assert torch.equal(sk.counts, ops.build_sketch(tp, t(x[:300]),
+                                                   paired=False).counts)
+    narrow = ops.sketch_stream(tp, t(x), mask, paired=False,
+                               dtype=torch.uint16)
+    assert torch.equal(narrow.counts.to(torch.int32), sk.counts)
+
+
+# -- losses -----------------------------------------------------------------------
+
+def test_margin_losses_match_jax():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(100, 3)).astype(np.float32) * 0.3
+    y = np.sign(rng.normal(size=100)).astype(np.float32)
+    th = np.array([0.2, -0.1, 0.4], np.float32)
+    j = lambda a: jnp.asarray(a)
+    for got, want in (
+        (losses.classification_empirical_risk(t(th), t(x), t(y), 2),
+         jlosses.classification_empirical_risk(j(th), j(x), j(y), 2)),
+        (losses.hinge_empirical_risk(t(th), t(x), t(y)),
+         jlosses.hinge_empirical_risk(j(th), j(x), j(y))),
+        (losses.classification_surrogate(t(x[:, 0]), 3),
+         jlosses.classification_surrogate(j(x[:, 0]), 3)),
+    ):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    for name in ("margin_classification", "logistic", "kmeans"):
+        spec, jspec = losses.get_surrogate(name), jlosses.get_surrogate(name)
+        for field in ("paired", "pad", "pin_last", "zero_guard", "init_noise",
+                      "refine_steps"):
+            assert getattr(spec, field) == getattr(jspec, field), (name, field)
+        assert spec.scale(3) == jspec.scale(3)
+        z = np.asarray(spec.encode(t(x), t(y)))
+        np.testing.assert_array_equal(z, np.asarray(jspec.encode(j(x), j(y))))
+        np.testing.assert_allclose(
+            float(spec.objective(t(th), t(z), 2)),
+            float(jspec.objective(j(th), j(z), 2)), rtol=1e-6)
+    assert erm.resolve("logistic") is losses.LOGISTIC
+
+
+# -- the fits on shared draws -------------------------------------------------------
+
+def test_classification_fit_matches_jax_on_shared_draws():
+    jx, jy, _ = jdatasets.make_classification(jax.random.PRNGKey(5), 1500, 4,
+                                              margin=0.5)
+    key = jax.random.PRNGKey(6)
+    cfg = jclassification.StormClassifierConfig(
+        rows=256, planes=2, dfo=jdfo.DFOConfig(steps=100, num_queries=8,
+                                               sigma=0.5, learning_rate=1.0,
+                                               decay=0.995))
+    want = jclassification.fit(key, jx, jy, cfg)
+    k_hash, k_rest = jax.random.split(key)
+    params = interop.lsh_params(np.asarray(
+        jlsh.init_srp(k_hash, cfg.rows, cfg.planes, 4 + 2).projections), CPU)
+    keys, noise = tenant_draws(k_rest, 1, 4, init_noise=True)
+    dirs, _ = fleet_draws(keys, cfg.dfo.steps, cfg.dfo.num_queries, 4)
+    pcfg = classification.StormClassifierConfig(rows=256, planes=2,
+                                                dfo=_port_dfo(cfg.dfo))
+    got = classification.fit(None, t(jx), t(jy), pcfg, params=params,
+                             directions=dirs, theta0_noise=noise[0],
+                             device=CPU)
+    counts = got.sketch.counts.numpy()
+    np.testing.assert_array_equal(counts.sum(1), np.full(cfg.rows, 1500))
+    moved = np.abs(counts - np.asarray(want.sketch.counts)).sum() // 2
+    assert moved <= 1e-4 * counts.sum(), moved
+    np.testing.assert_allclose(got.fleet_losses.numpy(),
+                               np.asarray(want.fleet_losses), rtol=1e-3)
+    assert abs(float(got.accuracy(t(jx), t(jy)))
+               - float(want.accuracy(jx, jy))) <= 0.005
+    cos = torch.nn.functional.cosine_similarity(got.theta, t(want.theta),
+                                                dim=0)
+    assert float(cos) > 0.99
+    assert got.predict(t(jx)).shape == (1500,)
+
+
+def _surrogate_parity(name, key, x, y, cfg):
+    """The port's fit_surrogate on JAX's hash family and draws."""
+    want = jerm.fit_surrogate(name, key, x, y, config=cfg)
+    spec = jlosses.get_surrogate(name)
+    k_hash, k_fit = jax.random.split(key)
+    d = x.shape[-1]
+    params = interop.lsh_params(np.asarray(jlsh.init_srp(
+        k_hash, cfg.rows, cfg.planes, d + spec.pad + 2).projections), CPU)
+    keys, noise = tenant_draws(k_fit, 1, d + spec.pad, init_noise=True)
+    dirs, _ = fleet_draws(keys, cfg.dfo.steps, cfg.dfo.num_queries,
+                          d + spec.pad)
+    pcfg = erm.ERMConfig(rows=cfg.rows, planes=cfg.planes,
+                         dfo=_port_dfo(cfg.dfo))
+    got = erm.fit_surrogate(name, None, t(x), None if y is None else t(y),
+                            pcfg, params=params, directions=dirs,
+                            theta0_noise=noise[0], device=CPU)
+    return got, want
+
+
+def _blobs(rng, n, d):
+    """The kmeans data of EXPERIMENTS.md's anchor: two unit-norm centres."""
+    centers = rng.normal(size=(2, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=-1, keepdims=True)
+    return np.concatenate([
+        centers[i] + 0.15 * rng.normal(size=(n // 2, d)).astype(np.float32)
+        for i in range(2)])
+
+
+def _density_gain(fit_theta, z, spec, planes):
+    """Density at the fitted direction over the mean of 32 random ones."""
+    dirs = np.asarray(jax.random.normal(jax.random.PRNGKey(4),
+                                        (32, z.shape[-1])))
+    fitted = -float(spec.objective(fit_theta, z, planes))
+    rand = np.mean([-float(spec.objective(t(v), z, planes)) for v in dirs])
+    return fitted / max(rand, 1e-12)
+
+
+@pytest.mark.parametrize("name", ["margin_classification", "logistic",
+                                  "kmeans"])
+def test_fit_surrogate_matches_jax_on_shared_draws(name):
+    rng = np.random.default_rng(7)
+    n, d = 600, 4
+    if name == "kmeans":
+        x, y = _blobs(rng, n, d), None
+    else:
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        y = np.sign(x @ rng.normal(size=d).astype(np.float32))
+    cfg = jerm.ERMConfig(rows=256, planes=2,
+                         dfo=jdfo.DFOConfig(steps=60, num_queries=8,
+                                            sigma=0.5, learning_rate=1.0,
+                                            decay=0.995))
+    got, want = _surrogate_parity(name, jax.random.PRNGKey(8),
+                                  jnp.asarray(x),
+                                  None if y is None else jnp.asarray(y), cfg)
+    np.testing.assert_array_equal(got.sketch.counts.sum(1).numpy(),
+                                  np.full(cfg.rows, n))
+    np.testing.assert_allclose(got.fleet_losses.numpy(),
+                               np.asarray(want.fleet_losses), rtol=1e-3)
+    cos = torch.nn.functional.cosine_similarity(got.theta, t(want.theta),
+                                                dim=0)
+    assert float(cos) > 0.99
+    zs, _ = lsh.scale_to_unit_ball(t(x))
+    np.testing.assert_allclose(float(got.objective(zs)),
+                               float(want.objective(jnp.asarray(zs.numpy()))),
+                               rtol=1e-3)
+
+
+def test_experiments_anchors_reproduce_on_the_port():
+    """EXPERIMENTS.md section "ERM spine" (n = 2000, d = 8, R = 1024,
+    200 DFO steps; the margins at p = 2, kmeans at p = 4): the port's
+    accuracies within 0.5 points and its density gain within 2% of the
+    JAX fits on the same data, hash families and draws."""
+    n, d = 2000, 8
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    w_true = rng.normal(size=(d,)).astype(np.float32)
+    rng.normal(size=(n,))  # the regression noise the benchmark draws here
+    yc = np.sign(x @ w_true).astype(np.float32)
+    step_cfg = jdfo.DFOConfig(steps=200, num_queries=8, sigma=0.5,
+                              learning_rate=1.0, decay=0.995)
+    for name, key in (("margin_classification", 2), ("logistic", 2)):
+        cfg = jerm.ERMConfig(rows=1024, planes=2, dfo=step_cfg)
+        got, want = _surrogate_parity(name, jax.random.PRNGKey(key),
+                                      jnp.asarray(x), jnp.asarray(yc), cfg)
+        acc = float(torch.mean((torch.sign(t(x) @ got.theta) == t(yc))
+                               .to(torch.float32)))
+        jacc = float(jnp.mean((jnp.sign(jnp.asarray(x) @ want.theta)
+                               == jnp.asarray(yc)).astype(jnp.float32)))
+        assert abs(acc - jacc) <= 0.005, (name, acc, jacc)
+        assert acc > 0.8, (name, acc)
+    xk = _blobs(rng, n, d)
+    cfg = jerm.ERMConfig(rows=1024, planes=4, dfo=step_cfg)
+    got, want = _surrogate_parity("kmeans", jax.random.PRNGKey(3),
+                                  jnp.asarray(xk), None, cfg)
+    zk, _ = lsh.scale_to_unit_ball(t(xk), 1.05)
+    gain = _density_gain(got.theta, zk, losses.KMEANS, 4)
+    jgain = _density_gain(t(want.theta), zk, losses.KMEANS, 4)
+    assert abs(gain - jgain) <= 0.02 * jgain, (gain, jgain)
+    assert gain > 2.0, gain
+
+
+def test_fit_surrogate_draws_its_own_and_needs_a_card_by_default():
+    x, y, _ = datasets.make_classification(generator(9, CPU), 300, 3)
+    cfg = erm.ERMConfig(rows=64, planes=2,
+                        dfo=dfo.DFOConfig(steps=20, num_queries=4))
+    a = erm.fit_surrogate("logistic", generator(10, CPU), x, y, cfg,
+                          device=CPU)
+    b = erm.fit_surrogate("logistic", generator(10, CPU), x, y, cfg,
+                          device=CPU)
+    assert torch.equal(a.theta, b.theta) and a.theta.shape == (3,)
+    # Injecting the init draw replaces exactly that draw.
+    gen = generator(10, CPU)
+    params = lsh.init_srp(gen, 64, 2, 5, device=CPU)
+    noise = torch.randn(3, generator=gen)
+    c = erm.fit_surrogate("logistic", gen, x, y, cfg, params=params,
+                          theta0_noise=noise, device=CPU)
+    assert torch.equal(c.theta, a.theta)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            classification.fit(None, x, y)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            erm.fit_surrogate("kmeans", None, x)
+    with pytest.raises(ValueError, match="theta0_noise"):
+        erm.fit("logistic", c.sketch, params, dfo.DFOConfig(steps=2),
+                device=CPU)
+
+
+# -- datasets and baselines ---------------------------------------------------------
+
+def test_datasets():
+    x, y, theta = datasets.make_classification(generator(11, CPU), 500, 3,
+                                               margin=0.5)
+    assert x.shape == (500, 3) and set(y.unique().tolist()) <= {-1.0, 1.0}
+    assert abs(float(theta.norm()) - 1.0) < 1e-6
+    assert float((y * (x @ theta)).min()) >= 0.5 - 1e-5  # the pushed margin
+    x2, y2, theta2 = datasets.make_2d_regression(generator(12, CPU), 300, 0.1)
+    assert x2.shape == (300, 1) and float(x2.abs().max()) <= 1.0
+    assert abs(float((y2 - x2 @ theta2).std()) - 0.1) < 0.02
+    batches = list(datasets.stream_batches(x, y, 128))
+    assert [b[0].shape[0] for b in batches] == [128, 128, 128, 116]
+    assert torch.equal(torch.cat([b[1] for b in batches]), y)
+
+
+def test_baselines_match_jax_on_injected_draws():
+    jx, jy, _ = jdatasets.make_regression(jax.random.PRNGKey(13), 400, 4,
+                                          noise=0.2)
+    x, y = t(jx), t(jy)
+    key = jax.random.PRNGKey(14)
+    m = 120
+
+    def close(got, want, rtol=1e-4):
+        np.testing.assert_allclose(got.theta.numpy(), np.asarray(want.theta),
+                                   rtol=rtol, atol=1e-4)
+        np.testing.assert_allclose(float(got.intercept),
+                                   float(want.intercept), atol=1e-4)
+        assert got.memory_bytes == want.memory_bytes
+
+    idx = jax.random.choice(key, 400, shape=(m,), replace=False)
+    close(baselines.uniform_sampling(None, x, y, m, idx=t(idx, torch.int64)),
+          jbaselines.uniform_sampling(key, jx, jy, m))
+    np.testing.assert_allclose(baselines.leverage_scores(x).numpy(),
+                               np.asarray(jbaselines.leverage_scores(jx)),
+                               rtol=1e-4, atol=1e-6)
+    scores = jbaselines.leverage_scores(jx)
+    lidx = jax.random.choice(key, 400, shape=(m,), p=scores / scores.sum(),
+                             replace=True)
+    close(baselines.leverage_sampling(None, x, y, m, idx=t(lidx, torch.int64)),
+          jbaselines.leverage_sampling(key, jx, jy, m), rtol=1e-3)
+    k_row, k_sign = jax.random.split(key)
+    rows = jax.random.randint(k_row, (400,), 0, m)
+    signs = jax.random.rademacher(k_sign, (400,), dtype=jnp.float32)
+    close(baselines.clarkson_woodruff(None, x, y, m, rows=t(rows, torch.int64),
+                                      signs=t(signs)),
+          jbaselines.clarkson_woodruff(key, jx, jy, m))
+    order = jax.random.permutation(key, 400)
+    close(baselines.streaming_svrg(None, x, y, order=t(order, torch.int64)),
+          jbaselines.streaming_svrg(key, jx, jy), rtol=1e-3)
+    # Their own draws: seeded, and near OLS on this easy problem.
+    ols_mse = float(baselines.ols(x, y).mse(x, y))
+    for fit in (baselines.uniform_sampling(generator(0, CPU), x, y, m),
+                baselines.leverage_sampling(generator(0, CPU), x, y, m),
+                baselines.clarkson_woodruff(generator(0, CPU), x, y, m),
+                baselines.uniform_sampling(generator(0, CPU), x, y, 800)):
+        assert float(fit.mse(x, y)) < 2.0 * ols_mse
+    svrg = baselines.streaming_svrg(generator(0, CPU), x, y)
+    assert float(svrg.mse(x, y)) < float(y.var())

@@ -26,8 +26,12 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, check=True, timeout=120)
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.core.regression" in report["modules"]
-    assert "repro_torch.kernels.storm_sketch" in report["modules"]
+    for name in ("repro_torch.core.regression",
+                 "repro_torch.core.classification",
+                 "repro_torch.kernels.storm_sketch",
+                 "repro_torch.kernels.sketch_query"):
+        assert name in report["modules"]
+        assert name in report["loaded"]
     leaked = [m for m in report["loaded"]
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert leaked == []

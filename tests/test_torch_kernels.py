@@ -133,7 +133,7 @@ def test_ops_modes_on_cpu():
     with pytest.raises(ValueError, match="mode"):
         ops.sketch_query(t(z), t(w), auto, mode="interpret")
     with pytest.raises(ValueError):
-        ops.sketch_query(t(z), t(w), auto[None])  # banked: not ported yet
+        ops.sketch_query(t(z), t(w), auto[None])  # banked needs a sketch_idx
 
 
 def test_ops_sketch_stream_and_query_theta():
@@ -156,8 +156,20 @@ def test_ops_sketch_stream_and_query_theta():
 
 def test_build_paths_are_content_addressed():
     srcs = _build.sources()
-    assert {s.stem for s in srcs} == {"paired_hash_histogram", "sketch_query"}
+    assert {s.stem for s in srcs} == {"paired_hash_histogram",
+                                      "hash_histogram", "sketch_query"}
     paths = [_build.library_path(s) for s in srcs]
-    assert len(set(paths)) == 2
+    assert len(set(paths)) == 3
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_paths_cover_the_shared_headers(tmp_path, monkeypatch):
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src = tmp_path / "hash_histogram.cu"
+    before = _build.library_path(src)
+    header = tmp_path / "insert_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path(src) != before

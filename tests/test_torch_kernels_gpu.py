@@ -5,8 +5,9 @@ so it runs where the card is:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Both kernels accumulate the projections in the plain versions' order, so
-the comparisons are bit for bit.
+Every kernel accumulates the projections in its plain version's order, so
+the comparisons are bit for bit; each slice of a banked insert also equals
+the lone kernel on that tenant.
 """
 
 import numpy as np
@@ -49,6 +50,92 @@ def test_insert_kernel_equals_plain_version(cuda, seed, n, d, p, r, masked,
     assert torch.equal(got, ref.paired_hash_histogram(z, w, mask, out))
 
 
+def _single_sided_inputs(seed, n, d, p, r, masked, device, tenants=None):
+    """Augmented unit-ball rows ``[z, 0, pad]`` (``d`` columns in all)."""
+    from repro_torch.core import lsh
+
+    rng = np.random.default_rng(seed)
+    lead = (n,) if tenants is None else (tenants, n)
+    z = rng.normal(size=lead + (d - 2,)).astype(np.float32)
+    z /= np.quantile(np.linalg.norm(z, axis=-1), 0.9) * 1.05
+    z /= np.maximum(np.linalg.norm(z, axis=-1, keepdims=True), 1.0)
+    x = lsh.augment_data(torch.from_numpy(z)).contiguous()
+    w = rng.normal(size=(p, d, r)).astype(np.float32)
+    mask = (rng.uniform(size=lead) < 0.7 if masked else np.ones(lead)).astype(
+        np.float32)
+    return x.to(device), torch.from_numpy(w).to(device), \
+        torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", [torch.int32, torch.int16, torch.int8])
+@pytest.mark.parametrize("seed,n,d,p,r,masked", [
+    (0, 1000, 11, 2, 1024, False), (1, 777, 7, 1, 130, True),
+    (2, 1234, 15, 8, 77, True), (3, 301, 32, 5, 64, False),
+])
+def test_single_sided_insert_kernel_equals_plain_version(cuda, seed, n, d, p,
+                                                         r, masked, out):
+    x, w, mask = _single_sided_inputs(seed, n, d, p, r, masked, cuda)
+    got = histogram_kernel.hash_histogram(x, w, mask, out)
+    assert torch.equal(got, ref.hash_histogram(x, w, mask, out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", [torch.int32, torch.int16, torch.int8])
+@pytest.mark.parametrize("paired", [True, False])
+@pytest.mark.parametrize("seed,s,n,d,p,r", [
+    (0, 5, 999, 9, 4, 300), (1, 3, 2048, 11, 2, 1024), (2, 1, 77, 4, 8, 33),
+])
+def test_banked_insert_kernels_equal_plain_and_lone(cuda, seed, s, n, d, p, r,
+                                                    paired, out):
+    if paired:
+        rng = np.random.default_rng(seed)
+        z = rng.normal(size=(s, n, d)).astype(np.float32)
+        z /= np.quantile(np.linalg.norm(z, axis=-1), 0.9) * 1.05
+        z /= np.maximum(np.linalg.norm(z, axis=-1, keepdims=True), 1.0)
+        x = torch.from_numpy(z).to(cuda)
+        w = torch.from_numpy(
+            rng.normal(size=(p, d + 2, r)).astype(np.float32)).to(cuda)
+        mask = torch.from_numpy(
+            (rng.uniform(size=(s, n)) < 0.8).astype(np.float32)).to(cuda)
+        banked = histogram_kernel.paired_hash_histogram_banked
+        lone = histogram_kernel.paired_hash_histogram
+        plain = ref.paired_hash_histogram_banked
+    else:
+        x, w, mask = _single_sided_inputs(seed, n, d, p, r, True, cuda,
+                                          tenants=s)
+        banked = histogram_kernel.hash_histogram_banked
+        lone = histogram_kernel.hash_histogram
+        plain = ref.hash_histogram_banked
+    mask[-1, n // 2:] = 0  # a ragged last tenant
+    got = banked(x, w, mask, out)
+    assert got.shape == (s, r, 1 << p) and got.dtype == out
+    assert torch.equal(got, plain(x, w, mask, out))
+    for i in range(s):
+        assert torch.equal(got[i], lone(x[i].contiguous(), w,
+                                        mask[i].contiguous(), out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts_dtype", [torch.int32, torch.int16, torch.int8])
+@pytest.mark.parametrize("m", [272, 16, 4096, 1001])
+def test_banked_query_kernel_equals_plain_version(cuda, m, counts_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    s = 16
+    w = torch.randn(4, 12, 2048, generator=gen, device=cuda)
+    hi = min(torch.iinfo(counts_dtype).max, 1 << 20)
+    counts = torch.randint(0, hi, (s, 2048, 16), generator=gen, device=cuda,
+                           dtype=torch.int32).to(counts_dtype)
+    q = torch.randn(m, 12, generator=gen, device=cuda)
+    idx = torch.randint(0, s, (m,), generator=gen, device=cuda)
+    got = query_kernel.sketch_query_banked(q, w, counts, idx)
+    assert torch.equal(got, ref.sketch_query_banked(q, w, counts, idx))
+    one = query_kernel.sketch_query(q[:1], w, counts[int(idx[0])].contiguous())
+    assert torch.equal(got[:1], one)
+    with pytest.raises(ValueError, match="sketch_idx"):
+        query_kernel.sketch_query_banked(q, w, counts, idx + s)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [17, 198, 4096, 1001])
 def test_query_kernel_equals_plain_version(cuda, m):
@@ -80,3 +167,51 @@ def test_fit_on_the_card_runs_through_both_kernels(cuda):
     # 50 DFO steps, 2 calls per refine pass, 1 selection call.
     assert query_kernel.sketch_query.launches == 50 + 2 * 1 + 1
     assert float(fit.mse(x, y)) < float(y.var())
+
+
+@pytest.mark.gpu
+def test_fit_many_on_the_card_queries_only_through_the_banked_kernel(cuda):
+    from repro_torch.core import dfo, regression
+    from repro_torch.data import datasets
+    from repro_torch.device import generator
+
+    gen = generator(1, cuda)
+    xs, ys = [], []
+    for n in (3000, 2500, 2000):
+        x, y, _ = datasets.make_regression(gen, n, 4, noise=0.2)
+        xs.append(x)
+        ys.append(y)
+    cfg = regression.StormRegressorConfig(
+        rows=512, dfo=dfo.DFOConfig(steps=40, num_queries=8, sigma=0.5,
+                                    learning_rate=2.0, decay=0.995))
+    counters = (histogram_kernel.paired_hash_histogram,
+                histogram_kernel.paired_hash_histogram_banked,
+                query_kernel.sketch_query, query_kernel.sketch_query_banked)
+    for c in counters:
+        c.launches = 0
+    fit = regression.fit_many(gen, xs, ys, cfg)
+    launches = [c.launches for c in counters]
+    # One insert per tenant; 40 DFO steps, 2 calls per refine pass and one
+    # selection call, each one banked launch; no lone query.
+    assert launches == [3, 0, 0, 40 + 2 * 1 + 1]
+    assert fit.bank.n.tolist() == [3000, 2500, 2000]
+    for i in range(3):
+        assert float(fit.select(i).mse(xs[i], ys[i])) < float(ys[i].var())
+
+
+@pytest.mark.gpu
+def test_classification_fit_on_the_card_runs_the_single_sided_insert(cuda):
+    from repro_torch.core import classification, dfo
+    from repro_torch.data import datasets
+    from repro_torch.device import generator
+
+    gen = generator(2, cuda)
+    x, y, _ = datasets.make_classification(gen, 20000, 5)
+    cfg = classification.StormClassifierConfig(
+        rows=256, planes=2, dfo=dfo.DFOConfig(steps=60, num_queries=8))
+    histogram_kernel.hash_histogram.launches = 0
+    query_kernel.sketch_query.launches = 0
+    fit = classification.fit(gen, x, y, cfg)
+    assert histogram_kernel.hash_histogram.launches == 1
+    assert query_kernel.sketch_query.launches == 60 + 1
+    assert float(fit.accuracy(x, y)) > 0.8

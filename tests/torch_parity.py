@@ -2,7 +2,8 @@
 
 ``jax.random`` draws cannot be reproduced by torch, so these helpers draw
 what the JAX package draws (hash families, DFO sphere directions, refine
-samples) and hand the arrays to the port through ``repro_torch.interop``.
+samples, the margin losses' init noise, the tenants' keys) and hand the
+arrays to the port through ``repro_torch.interop``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro.core import dfo as jdfo
+from repro.core import fleet as jfleet
 from repro.core import lsh as jlsh
 from repro_torch import interop
 
@@ -55,3 +57,20 @@ def fleet_draws(keys, steps: int, k: int, dim: int, refine_steps: int = 0,
 def t(a, dtype=torch.float32) -> torch.Tensor:
     """numpy/JAX array -> CPU torch tensor."""
     return torch.from_numpy(np.array(a)).to(dtype)
+
+
+def tenant_draws(key, tenants: int, dim: int, init_noise: bool):
+    """What ``repro.core.erm`` draws per tenant from a fit key, F = 1.
+
+    Returns ``(member keys (S, 2), theta0 noise (S, dim) or None)``: tenant
+    ``t`` keys by ``fleet.tenant_key``; with ``init_noise`` that key splits
+    into the init draw and the DFO key.
+    """
+    keys, noise = [], []
+    for s in range(tenants):
+        kt = jfleet.tenant_key(key, s)
+        if init_noise:
+            k_init, kt = jax.random.split(kt)
+            noise.append(np.asarray(jax.random.normal(k_init, (dim,))))
+        keys.append(kt)
+    return jnp.stack(keys), (t(np.stack(noise)) if init_noise else None)
