@@ -43,9 +43,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
     the kernels (with its launch counts), through the kernels' plain
     versions (which must give the same fit bit for bit) and through the
     scan engine, on the same draws.
-11. timings: device time per launch of each of the six kernels and its
-    plain version at the shapes above, beside the least time the card could
-    take, and where the time of the three fits goes.
+11. timings (run last): device time per launch of each of the seven
+    kernels and its plain version at the shapes above, beside the least time
+    the card could take; where the time of the three fits goes; the
+    gateway's ticks/s, points/s and rows/s, synchronous and pipelined, its
+    tick latency (p50, p99) and, under the profiler, the device's busy share
+    and the insert's and query's device time per tick.
+12. srp_hash: ``ops.srp_hash`` (the entry point, one launch) at the
+    regression family's hash (R = 2048, p = 4, 12 features) on 2^18 points
+    and ``srp_hash`` at ragged shapes (d in {11, 31, 515}, R in {33, 2048},
+    p in {1, 8, 30}), each against its plain version, bit for bit.
+13. gateway: ``StormGateway`` over 16 tenants warm started from phase 7's
+    bank, 4096 ingest and 32 query slots, 256 rounds of the launcher's
+    ``synth_traffic`` (2048 rows and 17 points per tenant and round; rounds
+    192-223 carry no queries, 224-255 no ingest) and a 50-step cohort fit
+    over tenants 0-3 every 64 rounds, with ``tick_start`` under
+    ``torch.cuda.set_sync_debug_mode("error")``. Every tenant's counters
+    against the warm bank plus its lone insert, every served point against
+    a standalone query of the tenant's sketch at that tick, every fit
+    against the offline ``erm.fit_many``; one full tick makes one banked
+    insert and one banked query; depth 2 and 3 against the synchronous loop;
+    ``mode="ref"`` over the first 32 rounds and an int16 copy (saturating)
+    over the first 64, bit for bit; a short single-sided run (R = 1024,
+    p = 2) against the lone single-sided inserts.
+14. tiered gateway: 64 tenants over 16 resident int16 slots under Zipf(1.1)
+    tenant traffic; the final sketches against a flat 64-tenant int16
+    gateway's, the pipelined loop against the synchronous one.
 
 The last two lines are the card (nvidia-smi's name and power limit) and
 ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
@@ -56,11 +79,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
+from collections import deque
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -84,6 +109,178 @@ CLS_ROWS, CLS_PLANES, KMEANS_PLANES = 1024, 2, 4
 # one short, each its own airfoil-matched draw.
 TENANTS, TENANT_ROWS, TENANT_SHORT = 16, 1 << 18, 1000
 
+
+# Kernel 7 (srp_hash) on its own entry point: the regression family's hash
+# (R = 2048, p = 4 over the 12 augmented features) on a quarter-million
+# query points (the codes of the full 2^22-row stream would be 32 GiB),
+# then ragged shapes through both of the kernel's paths.
+SRP_ROWS = 1 << 18
+SRP_RAGGED = ((100_003, 11, 2048, 8), (100_003, 31, 33, 30),
+              (100_003, 515, 33, 1))
+
+# The serving gateway at the regression family's width: 16 tenants warm
+# started from phase 7's bank, 4096 ingest and 32 query slots each, and per
+# tenant and round 2048 rows and 17 query points (one k = 8 DFO step).
+# Rounds 192-223 carry no queries and 224-255 no ingest, so all three tick
+# bodies run; a 50-step regression fit over tenants 0-3 every 64 rounds.
+GW_INGEST_SLOTS, GW_QUERY_SLOTS = 4096, 32
+GW_INGEST_RATE, GW_QUERY_RATE = 2048, 17
+GW_ROUNDS, GW_INGEST_ONLY, GW_QUERY_ONLY = 256, range(192, 224), range(224, 256)
+GW_FIT_EVERY, GW_FIT_COHORT, GW_FIT_STEPS = 64, (0, 1, 2, 3), 50
+GW_REF_ROUNDS, GW_NARROW_ROUNDS, GW_SINGLE_ROUNDS = 32, 64, 16
+GW_PROFILE_TICKS = 64
+# The tiered gateway: 64 tenants over 16 resident int16 slots. Each round
+# draws 16 tenants under Zipf(1.1), each sending a quarter of a gateway
+# tenant's round (512 rows, 4 points), so that the most-drawn tenant stays
+# within its slots and the tail keeps swapping.
+TIERED_TENANTS, TIERED_HOT, TIERED_ROUNDS, TIERED_DRAWS = 64, 16, 128, 16
+TIERED_ROWS, TIERED_POINTS = GW_INGEST_RATE // 4, 4
+ZIPF_EXPONENT, TIERED_PROMOTE_PER_TICK = 1.1, 4
+
+
+@contextlib.contextmanager
+def no_host_sync(torch):
+    """Any device->host read or blocking copy inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def gateway_script(serve, gw_mod, seed, rounds, tenants, dim, fits=True,
+                   augment=None):
+    """Per-round request lists from the launcher's ``synth_traffic``
+    (``augment`` maps single-sided rows to the augmented space)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rids = itertools.count()
+    script = []
+    for i in range(rounds):
+        ingest = 0 if i in GW_QUERY_ONLY else GW_INGEST_RATE
+        query = 0 if i in GW_INGEST_ONLY else GW_QUERY_RATE
+        reqs = serve.synth_traffic(rng, rids, tenants, dim, ingest, query)
+        if augment is not None:
+            reqs = [dataclasses.replace(r, z=augment(r.z))
+                    if isinstance(r, gw_mod.IngestRequest) else r
+                    for r in reqs]
+        if fits and (i + 1) % GW_FIT_EVERY == 0:
+            reqs.append(gw_mod.FitRequest(
+                rid=next(rids), tenants=list(GW_FIT_COHORT), seed=i,
+                steps=GW_FIT_STEPS))
+        script.append(reqs)
+    return script
+
+
+def zipf_script(gw_mod, seed, rounds, tenants, dim):
+    """Per-round requests of ``TIERED_DRAWS`` tenants drawn Zipf(1.1),
+    each draw ``Poisson(TIERED_ROWS)`` rows as ``synth_traffic`` makes them
+    and ``Poisson(TIERED_POINTS)`` query points."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rids = itertools.count()
+    prob = np.arange(1, tenants + 1, dtype=np.float64) ** -ZIPF_EXPONENT
+    prob /= prob.sum()
+    script = []
+    for _ in range(rounds):
+        reqs = []
+        for t in rng.choice(tenants, size=TIERED_DRAWS, p=prob):
+            z = rng.normal(size=(int(rng.poisson(TIERED_ROWS)), dim))
+            z = (z * (0.4 / np.sqrt(dim))).astype(np.float32)
+            reqs.append(gw_mod.IngestRequest(rid=next(rids), tenant=int(t),
+                                             z=z))
+            th = rng.normal(size=(int(rng.poisson(TIERED_POINTS)), dim))
+            reqs.append(gw_mod.QueryRequest(rid=next(rids), tenant=int(t),
+                                            thetas=th.astype(np.float32)))
+        script.append(reqs)
+    return script
+
+
+def drive(gw, script, depth=1, on_start=None, guard=None, drain=True):
+    """Submit each round and start a tick; finish ticks in order with up to
+    ``depth`` in flight; then drain. Returns ``(reports, latencies,
+    starts)``: a tick's latency is the host time from its start to its
+    finish, ``starts`` the host time spent in ``tick_start``."""
+    reports, latencies, starts, inflight = [], [], [], deque()
+
+    def start():
+        t0 = time.perf_counter()
+        with guard() if guard is not None else contextlib.nullcontext():
+            fl = gw.tick_start()
+        starts.append(time.perf_counter() - t0)
+        if on_start is not None:
+            on_start(fl)
+        inflight.append((fl, t0))
+
+    def finish():
+        fl, t0 = inflight.popleft()
+        reports.append(gw.tick_finish(fl))
+        latencies.append(time.perf_counter() - t0)
+
+    for reqs in script:
+        gw.submit_many(reqs)
+        start()
+        while len(inflight) >= depth:
+            finish()
+    while inflight or (drain and gw.pending):
+        if drain and gw.pending and len(inflight) < depth:
+            start()
+        else:
+            finish()
+    return reports, latencies, starts
+
+
+def streams_of(script, gw_mod, tenants):
+    """Each tenant's ingested rows, in submission order."""
+    import numpy as np
+
+    rows = [[] for _ in range(tenants)]
+    for reqs in script:
+        for r in reqs:
+            if isinstance(r, gw_mod.IngestRequest):
+                rows[r.tenant].append(r.z)
+    return [np.concatenate(z) if z else np.zeros((0, 1), np.float32)
+            for z in rows]
+
+
+class TickLog:
+    """``on_start`` hook: each tick's placements and a copy of the bank
+    right behind its body (the counters its queries and fits read)."""
+
+    def __init__(self, gw):
+        self.gw = gw
+        self.placements = []  # (tick, rid, req_offset, tenant, count)
+        self.snaps = {}       # tick -> (counts, n)
+
+    def __call__(self, fl):
+        for st, off, t, _, take in fl.placements:
+            self.placements.append((fl.tick, st.req.rid, off, t, take))
+        bank = self.gw.bank
+        self.snaps[fl.tick] = (bank.counts.clone(), bank.n.clone())
+
+
+def check_queries(log, reports, script, gw_mod, w, paired, ops, sketch_lib,
+                  torch):
+    """Every served point equals a standalone query of its tenant's lone
+    sketch as it stood at the tick that served it. Returns the count."""
+    thetas = {r.rid: r.thetas for reqs in script for r in reqs
+              if isinstance(r, gw_mod.QueryRequest)}
+    losses = {r.rid: r.losses for rep in reports for r in rep.results}
+    if set(losses) != set(thetas):
+        raise AssertionError("not every query request completed once")
+    dev = w.device
+    for tick, rid, off, t, take in log.placements:
+        counts, n = log.snaps[tick]
+        want = ops.query_theta_with_weights(
+            sketch_lib.Sketch(counts=counts[t], n=n[t]), w,
+            torch.from_numpy(thetas[rid][off:off + take]).to(dev),
+            paired=paired)
+        if not (want.cpu().numpy() == losses[rid][off:off + take]).all():
+            raise AssertionError(f"query {rid} (tick {tick}, tenant {t}) "
+                                 f"differs from the standalone query")
+    return len(log.placements)
 
 def _log(*args) -> None:
     print(*args, flush=True)
@@ -169,6 +366,30 @@ def _fit_profile(label, fit, torch, symbols):
          f"top kernels: {top}")
 
 
+def _gateway_profile(torch, gw, script):
+    """Device busy share of ``GW_PROFILE_TICKS`` full pipelined ticks, and
+    the device time per tick of the insert and the query kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    drive(gw, script[:4])  # warm-up
+    rounds = script[4:4 + GW_PROFILE_TICKS]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        reps, *_ = drive(gw, rounds, depth=2, drain=False)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - start)
+    events = _device_events(prof)
+    busy = sum(us for _, us in events) / 1e3
+    per_tick = {sym: sum(us for n, us in events if _kernel_named(sym, n))
+                / 1e3 / len(reps)
+                for sym in ("paired_hist_kernel", "sketch_query_kernel")}
+    _log(f"[time] gateway under the profiler: {len(reps)} full pipelined "
+         f"ticks, {wall:.3f} ms wall, device busy {busy:.3f} ms "
+         f"({100 * busy / wall:.2f}%); per tick: insert "
+         f"{per_tick['paired_hist_kernel']:.4f} ms, query "
+         f"{per_tick['sketch_query_kernel']:.4f} ms")
+
+
 def _bound(bytes_moved: float, flops: float):
     by_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
     by_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -188,10 +409,17 @@ def plain_versions():
                              "paired_hash_histogram_banked",
                              "hash_histogram_banked"),
              query_kernel: ("sketch_query", "sketch_query_banked")}
+    plain = {name: getattr(ref, name)
+             for group in names.values() for name in group}
+    # The banked query's wrapper also takes the caller's index_checked
+    # flag, which the plain gather has no use for.
+    plain["sketch_query_banked"] = (
+        lambda q, w, counts, idx, index_checked=False:
+        ref.sketch_query_banked(q, w, counts, idx))
     saved = [(mod, name, getattr(mod, name))
              for mod, group in names.items() for name in group]
     for mod, name, _ in saved:
-        setattr(mod, name, getattr(ref, name))
+        setattr(mod, name, plain[name])
     try:
         yield
     finally:
@@ -200,6 +428,7 @@ def plain_versions():
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -218,7 +447,12 @@ def main() -> int:
     from repro_torch.device import generator, resolve_device
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import sketch_query as query_kernel
+    from repro_torch.kernels import srp_hash as hash_kernel
     from repro_torch.kernels import storm_sketch as insert_kernel
+    from repro_torch.launch import storm_serve
+    from repro_torch.serve import storm_gateway
+    from repro_torch.serve import tiered_gateway as tiered_mod
+    from repro_torch.serve.storm_gateway import report_key
 
     # -- 1. device --------------------------------------------------------------
     dev = resolve_device("cuda")  # also switches TF32 off for the plain versions
@@ -642,6 +876,246 @@ def main() -> int:
     if faults:
         raise AssertionError("; ".join(faults))
 
+    # -- 12. kernel 7: srp_hash on its own entry point -------------------------
+    counters["srp_hash"] = hash_kernel.srp_hash
+    errs["srp_hash"] = 0.0
+
+    def check_srp(label, xi, wi, got):
+        want = ref.srp_hash(xi, wi)
+        torch.cuda.synchronize()
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max()
+                    ) if got.numel() else 0.0
+        errs["srp_hash"] = max(errs["srp_hash"], err)
+        _log(f"[srp] {label}: n={xi.shape[0]} d={wi.shape[1]} p={wi.shape[0]}"
+             f" R={wi.shape[2]} max|err|={err:g}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"srp_hash kernel differs from its plain "
+                                 f"version at {label}")
+
+    th_h = torch.randn(SRP_ROWS, dim - 2, generator=gen, device=dev)
+    xh = lsh.augment_query(lsh.normalize_query(th_h)).contiguous()
+    for c in counters.values():
+        c.launches = 0
+    codes = ops.srp_hash(xh, w)  # the entry point, as a user calls it
+    torch.cuda.synchronize()
+    srp_launches = {name: c.launches for name, c in counters.items()}
+    if srp_launches["srp_hash"] != 1 or sum(srp_launches.values()) != 1:
+        raise AssertionError(f"ops.srp_hash made {srp_launches}")
+    launches["srp_hash"] = srp_launches["srp_hash"]
+    check_srp("full", xh, w, codes)
+    del codes
+    for n_h, d_h, r_h, p_h in SRP_RAGGED:
+        xi = torch.randn(n_h, d_h, generator=gen, device=dev)
+        wi = torch.randn(p_h, d_h, r_h, generator=gen, device=dev)
+        check_srp("ragged", xi, wi, hash_kernel.srp_hash(xi, wi))
+
+    # -- 13. the serving gateway at full width ----------------------------------
+    gw_mod = storm_gateway
+    warm = banks[True]  # phase 7's 16 x 2^18 paired bank, int32
+    gw_dim = dim - 2    # sketch-space rows: 9 features and y
+
+    def flat_gateway(bank=None, mode="auto", count_dtype=torch.int32,
+                     gparams=params, paired=True, tenants=TENANTS):
+        return gw_mod.StormGateway(
+            gparams, tenants, paired=paired, query_slots=GW_QUERY_SLOTS,
+            ingest_slots=GW_INGEST_SLOTS, mode=mode, count_dtype=count_dtype,
+            bank=bank, device=dev)
+
+    script = gateway_script(storm_serve, gw_mod, SEED + 13, GW_ROUNDS,
+                            TENANTS, gw_dim)
+    guard = lambda: no_host_sync(torch)  # noqa: E731
+    gw = flat_gateway(bank=warm)
+    log = TickLog(gw)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    sync_reports, *_ = drive(gw, script, on_start=log, guard=guard)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    gw_launches = {name: c.launches for name, c in counters.items()}
+    _log(f"[gateway] sync run (tick_start under sync debug mode 'error'): "
+         f"{gw.ticks} ticks, {gw.rows_ingested} rows, {gw.points_served} "
+         f"points, {gw.fits_run} fits in {check_s:.3f} s; trace_count "
+         f"{gw.trace_count}; staging waits {gw.staging_waits}; launches "
+         f"{gw_launches}")
+    if (gw_launches["paired_hash_histogram_banked"] < 1
+            or gw_launches["sketch_query_banked"] < 1
+            or gw_launches["paired_hash_histogram"]
+            or gw_launches["sketch_query"]):
+        raise AssertionError("the gateway did not serve through the banked "
+                             "kernels alone")
+    if gw.trace_count > 3 or len({sig[0] for sig in gw._signatures}) != 3:
+        raise AssertionError(f"tick bodies: {gw._signatures}")
+
+    # Counters: the warm bank plus each tenant's lone paired insert.
+    streams = streams_of(script, gw_mod, TENANTS)
+    for t, zt in enumerate(streams):
+        zt = torch.from_numpy(zt).to(dev)
+        lone = insert_kernel.paired_hash_histogram(
+            zt, w, torch.ones(zt.shape[0], device=dev))
+        if not (torch.equal(gw.bank.counts[t], warm.counts[t] + lone)
+                and int(gw.bank.n[t]) == int(warm.n[t]) + zt.shape[0]):
+            raise AssertionError(f"tenant {t}'s served counters differ from "
+                                 f"the warm bank plus its lone insert")
+    served = check_queries(log, sync_reports, script, gw_mod, w, True, ops,
+                           sketch_lib, torch)
+    # Each cohort fit against the offline erm.fit_many on the same counters.
+    fit_reports = [(rep.tick, f) for rep in sync_reports for f in rep.fits]
+    for tick, f in fit_reports:
+        counts_k, n_k = log.snaps[tick]
+        sub = sketch_lib.SketchBank(
+            counts=counts_k[list(f.tenants)].to(torch.int32),
+            n=n_k[list(f.tenants)])
+        req = next(r for reqs in script for r in reqs if r.rid == f.rid)
+        want = erm.fit_many(
+            req.surrogate, sub, params,
+            dfo.DFOConfig(steps=req.steps, num_queries=req.num_queries,
+                          sigma=req.sigma, learning_rate=req.learning_rate,
+                          decay=req.decay),
+            restarts=req.restarts, l2=req.l2, refine_steps=req.refine_steps,
+            generator=generator(req.seed, dev), device=dev)
+        if not (np.array_equal(f.theta, want.theta.cpu().numpy())
+                and np.array_equal(f.fleet_losses,
+                                   want.fleet_losses.cpu().numpy())):
+            raise AssertionError(f"the gateway fit at tick {tick} differs "
+                                 f"from the offline fit_many")
+    if len(fit_reports) != GW_ROUNDS // GW_FIT_EVERY:
+        raise AssertionError(f"{len(fit_reports)} fits ran")
+    _log(f"[gateway] counters equal warm + lone inserts for {TENANTS} "
+         f"tenants; {served} placements equal standalone queries; "
+         f"{len(fit_reports)} fits equal the offline fit_many")
+
+    # One full tick: one banked insert, one banked query, nothing else.
+    gw.submit_many(storm_serve.synth_traffic(
+        np.random.default_rng(SEED), itertools.count(10 ** 6), TENANTS,
+        gw_dim, GW_INGEST_RATE, GW_QUERY_RATE))
+    for c in counters.values():
+        c.launches = 0
+    gw.tick()
+    tick_launches = {name: c.launches for name, c in counters.items()}
+    if (tick_launches["paired_hash_histogram_banked"] != 1
+            or tick_launches["sketch_query_banked"] != 1
+            or sum(tick_launches.values()) != 2):
+        raise AssertionError(f"a full tick made {tick_launches}")
+    _log(f"[gateway] one full tick: {tick_launches}")
+
+    # Pipelined at depth 2 and 3 against the synchronous loop.
+    sync_keys = [report_key(r) for r in sync_reports]
+    final = log.snaps[max(log.snaps)][0]
+    for depth in (2, 3):
+        gp = flat_gateway(bank=warm)
+        reps, *_ = drive(gp, script, depth=depth, guard=guard)
+        if not ([report_key(r) for r in reps] == sync_keys
+                and torch.equal(gp.bank.counts, final)):
+            raise AssertionError(f"depth {depth} differs from the sync loop")
+        _log(f"[gateway] depth {depth}: {len(reps)} reports, counters and "
+             f"order equal the sync loop")
+    # The plain versions (mode="ref") over the first rounds.
+    gr = flat_gateway(bank=warm, mode="ref")
+    reps, *_ = drive(gr, script[:GW_REF_ROUNDS], drain=False)
+    if not ([report_key(r) for r in reps] == sync_keys[:GW_REF_ROUNDS]
+            and torch.equal(gr.bank.counts, log.snaps[GW_REF_ROUNDS][0])):
+        raise AssertionError("the gateway through the plain versions differs")
+    _log(f"[gateway] mode='ref': {GW_REF_ROUNDS} ticks equal bit for bit")
+    # An int16 copy saturates where the int32 run's saturating cast says.
+    g16 = flat_gateway(bank=sketch_lib.SketchBank(
+        counts=sketch_lib.saturating_cast(warm.counts, torch.int16),
+        n=warm.n), count_dtype=torch.int16)
+    drive(g16, script[:GW_NARROW_ROUNDS], drain=False)
+    want16 = sketch_lib.saturating_cast(log.snaps[GW_NARROW_ROUNDS][0],
+                                        torch.int16)
+    saturated = int((log.snaps[GW_NARROW_ROUNDS][0] > 32767).sum())
+    if not (torch.equal(g16.bank.counts, want16) and saturated
+            and int(g16.bank.counts.max()) == 32767):
+        raise AssertionError("the int16 gateway differs from the saturated "
+                             "int32 counters")
+    _log(f"[gateway] int16 copy: {GW_NARROW_ROUNDS} ticks equal the "
+         f"saturating cast of the int32 counters ({saturated} cells "
+         f"saturated)")
+    del log, g16, gr
+
+    # A short single-sided run: kernel 5 on the path.
+    def augment(z):
+        zt = torch.from_numpy(z)
+        zt = zt / torch.clamp(torch.linalg.vector_norm(zt, dim=1,
+                                                       keepdim=True), min=1.0)
+        return lsh.augment_data(zt).numpy()
+
+    s_script = gateway_script(storm_serve, gw_mod, SEED + 14,
+                              GW_SINGLE_ROUNDS, TENANTS, D_FEATURES,
+                              fits=False, augment=augment)
+    gs = flat_gateway(gparams=cparams, paired=False)
+    slog = TickLog(gs)
+    for c in counters.values():
+        c.launches = 0
+    s_reports, *_ = drive(gs, s_script, on_start=slog, guard=guard)
+    torch.cuda.synchronize()
+    single_launches = {name: c.launches for name, c in counters.items()}
+    if (single_launches["hash_histogram_banked"] < 1
+            or single_launches["sketch_query_banked"] < 1
+            or single_launches["paired_hash_histogram_banked"]):
+        raise AssertionError(f"the single-sided gateway made "
+                             f"{single_launches}")
+    for t, xt in enumerate(streams_of(s_script, gw_mod, TENANTS)):
+        xt = torch.from_numpy(xt).to(dev)
+        lone = insert_kernel.hash_histogram(
+            xt, wc, torch.ones(xt.shape[0], device=dev))
+        if not torch.equal(gs.bank.counts[t], lone):
+            raise AssertionError(f"single-sided tenant {t} differs from its "
+                                 f"lone insert")
+    s_served = check_queries(slog, s_reports, s_script, gw_mod, wc, False,
+                             ops, sketch_lib, torch)
+    _log(f"[gateway] single-sided (R={CLS_ROWS}, p={CLS_PLANES}): counters "
+         f"equal the lone inserts, {s_served} placements equal standalone "
+         f"queries; launches {single_launches}")
+    del slog, gs
+
+    # -- 14. the tiered gateway -------------------------------------------------
+    z_script = zipf_script(gw_mod, SEED + 15, TIERED_ROUNDS, TIERED_TENANTS,
+                           gw_dim)
+
+    def tiered_gateway():
+        return tiered_mod.TieredStormGateway(
+            params, TIERED_TENANTS, TIERED_HOT, query_slots=GW_QUERY_SLOTS,
+            ingest_slots=GW_INGEST_SLOTS, count_dtype=torch.int16,
+            promote_per_tick=TIERED_PROMOTE_PER_TICK, device=dev)
+
+    gt = tiered_gateway()
+    swaps = [0]  # swap_count after each tick_start
+
+    def count_swaps(fl):
+        swaps.append(gt.tiers.swap_count)
+
+    t_reports, *_ = drive(gt, z_script, on_start=count_swaps, guard=guard)
+    flat64 = flat_gateway(count_dtype=torch.int16, tenants=TIERED_TENANTS)
+    drive(flat64, z_script)
+    for t in range(TIERED_TENANTS):
+        sk = gt.sketch_of(t)
+        if not (torch.equal(sk.counts, flat64.bank.counts[t])
+                and int(sk.n) == int(flat64.bank.n[t])):
+            raise AssertionError(f"tiered tenant {t} differs from the flat "
+                                 f"64-tenant gateway")
+    gtp = tiered_gateway()
+    tp_reports, *_ = drive(gtp, z_script, depth=2, guard=guard)
+    if [report_key(r) for r in tp_reports] != [report_key(r)
+                                               for r in t_reports]:
+        raise AssertionError("the pipelined tiered gateway differs from the "
+                             "sync loop")
+    for t in range(TIERED_TENANTS):
+        if not torch.equal(gtp.sketch_of(t).counts, gt.sketch_of(t).counts):
+            raise AssertionError(f"pipelined tiered tenant {t} differs")
+    if gt.trace_count > 4 or gtp.trace_count > 4:
+        raise AssertionError(f"tiered trace_count {gt.trace_count}")
+    tier = gt.queue_stats()["tier"]
+    _log(f"[tiered] T={TIERED_TENANTS} H={TIERED_HOT} int16, Zipf "
+         f"{ZIPF_EXPONENT}: {gt.ticks} ticks, "
+         f"{sum(b > a for a, b in zip(swaps, swaps[1:]))} of them swapped "
+         f"({tier['swap_count']} swaps, {gt.promotions} promotions, "
+         f"{gt.deferred_promotions} deferred); final sketches equal the flat "
+         f"64-tenant int16 gateway's; depth 2 equals sync; trace_count "
+         f"{gt.trace_count}; tick_start ran under sync debug mode 'error'")
+    del gt, gtp, flat64
+
     # -- 11. timings ------------------------------------------------------------
     # "ms" is device time per launch from torch.profiler (CUPTI); where the
     # profiler records no device activity it is the CUDA-event time per call,
@@ -705,6 +1179,11 @@ def main() -> int:
             _bound(bytes_moved=4 * (qb.numel() + w.numel() + 2 * mq
                                     + min(mq * rows, bcounts.numel())),
                    flops=2.0 * mq * d_aug * rows * p)),
+        "srp_hash": (
+            lambda: hash_kernel.srp_hash(xh, w),
+            lambda: ref.srp_hash(xh, w), 20, 1, "srp_hash_reg_kernel",
+            _bound(bytes_moved=4 * (xh.numel() + w.numel() + SRP_ROWS * rows),
+                   flops=2.0 * SRP_ROWS * d_aug * rows * p)),
     }
     times = {}
     for name, (kern, plain, reps, plain_reps, symbol, bound) in cases.items():
@@ -727,6 +1206,32 @@ def main() -> int:
     _fit_profile("many", lambda: run_many("auto"), torch,
                  ("paired_hist_kernel", "sketch_query_kernel"))
 
+    # The gateway on fit-free traffic: throughput and tick latency (host
+    # clock from a tick's start to its finish), synchronous and pipelined;
+    # then the device's busy share over full ticks under the profiler.
+    t_script = gateway_script(storm_serve, gw_mod, SEED + 13, GW_ROUNDS,
+                              TENANTS, gw_dim, fits=False)
+    drive(flat_gateway(bank=warm), t_script[:16])  # warm-up
+    for label, depth in (("sync", 1), ("pipelined", 2)):
+        gtm = flat_gateway(bank=warm)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        reps, lat, starts = drive(gtm, t_script, depth=depth)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+
+        def pct(v):
+            ms = [1e3 * x for x in v]
+            return (f"p50 {statistics.median(ms):.4f} ms, p99 "
+                    f"{statistics.quantiles(ms, n=100)[98]:.4f} ms")
+
+        _log(f"[time] gateway {label}: {len(reps)} ticks in {secs:.4f} s: "
+             f"{len(reps) / secs:.1f} ticks/s, {gtm.points_served / secs:.0f}"
+             f" points/s, {gtm.rows_ingested / secs:.0f} rows/s; tick "
+             f"latency {pct(lat)}; host time in tick_start {pct(starts)}; "
+             f"staging waits {gtm.staging_waits}")
+    _gateway_profile(torch, flat_gateway(bank=warm), t_script)
+
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"
     for name, src, replaces in (
@@ -742,6 +1247,8 @@ def main() -> int:
          "src/repro/kernels/storm_sketch.py:339"),
         ("sketch_query_banked", csrc + "sketch_query.cu",
          "src/repro/kernels/sketch_query.py:175"),
+        ("srp_hash", csrc + "srp_hash.cu",
+         "src/repro/kernels/srp_hash.py:53"),
     ):
         ms, plain_ms, (bound_ms, bound_by) = times[name]
         kernels.append({

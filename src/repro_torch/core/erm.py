@@ -285,8 +285,9 @@ def fit_many(
     rs = spec.refine_steps if refine_steps is None else refine_steps
 
     tenants = torch.arange(s, dtype=torch.int32, device=dev)
+    members = tenants[:, None].expand(s, f).reshape(-1)  # tenant of member
     loss_fn = surrogate_loss_fn(spec, bank, params, l2=l2, engine=engine,
-                                member_map=torch.repeat_interleave(tenants, f))
+                                member_map=members)
     proj = _projection(spec)
     block = lambda a, t: None if a is None else a[:, t * f:(t + 1) * f]
     parts = [

@@ -64,7 +64,9 @@ def member_point_idx(member_map: Tensor, q: int) -> Tensor:
     if q % f:
         raise ValueError(f"banked batch of {q} points is not member-major "
                          f"over {f} fleet members")
-    return torch.repeat_interleave(member_map, q // f)
+    # expand + reshape repeats each entry without reading the tensor back
+    # (repeat_interleave may size its output on the host).
+    return member_map[:, None].expand(f, q // f).reshape(q)
 
 
 def make_loss_fn(
@@ -97,6 +99,11 @@ def make_loss_fn(
         raise ValueError("member_map must be given iff sk is a SketchBank")
     if banked and sk.size == 1:
         sk, banked, member_map = sk.select(0), False, None
+    if banked:  # checked once here, so no query reads the index back
+        lo, hi = (int(v) for v in torch.aminmax(member_map))
+        if lo < 0 or hi >= sk.size:
+            raise ValueError(f"member_map must lie in [0, {sk.size}); got "
+                             f"{lo}..{hi}")
     idx_cache = {}
 
     def point_idx(thetas: Tensor) -> Tensor:
@@ -115,8 +122,9 @@ def make_loss_fn(
 
         def estimate(thetas: Tensor) -> Tensor:
             idx = point_idx(thetas) if banked else None
-            return ops.query_theta_with_weights(sk, w, thetas, paired=paired,
-                                                sketch_idx=idx)
+            return ops.query_theta_with_weights(
+                sk, w, thetas, paired=paired, sketch_idx=idx,
+                index_checked=banked)
     else:
 
         def estimate(thetas: Tensor) -> Tensor:

@@ -143,7 +143,8 @@ def mean_count(gathered: Tensor) -> Tensor:
     """
     total = gathered.to(torch.int64).sum(-1).to(torch.float32)
     inv_rows = np.float32(1.0) / np.float32(gathered.shape[-1])
-    return total * torch.tensor(inv_rows, device=gathered.device)
+    # A Python scalar operand: exact in fp32, and no host->device copy.
+    return total * float(inv_rows)
 
 
 def denominator(n: Tensor, paired: bool) -> Tensor:

@@ -2,8 +2,10 @@
 
 ``jax.random`` draws threefry streams that torch cannot reproduce, so parity
 runs draw the hash family, the DFO sphere directions and the refine samples
-once, hand them over as numpy arrays, and the port replays them. This module
-takes and returns numpy only; it never imports JAX.
+once, hand them over as numpy arrays, and the port replays them. Serving
+state crosses the same way: a gateway's warm-start bank (:func:`sketch_bank`)
+and a tiered store's slot map and cold tables (:func:`tiered_bank`). This
+module takes and returns numpy only; it never imports JAX.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsh import LSHParams
-from repro_torch.core.sketch import Sketch, SketchBank
+from repro_torch.core.sketch import Sketch, SketchBank, counter_dtype
+from repro_torch.core.tiered import TieredBank
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -56,6 +59,53 @@ def sketch_bank(counts, n, device: DeviceLike = None) -> SketchBank:
     dev = resolve_device(device)
     return SketchBank(counts=torch.from_numpy(c).to(dev),
                       n=torch.from_numpy(nn).to(dev))
+
+
+def tiered_bank(num_tenants: int, hot_capacity: int, rows: int,
+                buckets: int, dtype, slot_tenant, cold,
+                last_touch=None, touches=None, swap_count: int = 0,
+                device: DeviceLike = None) -> TieredBank:
+    """A :class:`TieredBank` in a given state (the resident tables live in
+    the caller's ``(counts, n)``, e.g. from :func:`sketch_bank`).
+
+    Args:
+      dtype: the counter dtype, as a numpy or torch dtype or its name.
+      slot_tenant: ``(H,)`` tenant of each slot, ``None`` for a free slot.
+      cold: ``{tenant: (counts (R, B), n)}`` spilled tables (landed ones:
+        flush the source's evictions first).
+      last_touch / touches: ``(H,)`` activity of each slot (default 0).
+    """
+    name = getattr(dtype, "name", None) or str(dtype).replace("torch.", "")
+    tb = TieredBank(num_tenants, hot_capacity, rows, buckets,
+                    dtype=counter_dtype(name), device=device)
+    if len(slot_tenant) != tb.hot_capacity:
+        raise ValueError(f"slot_tenant must have {tb.hot_capacity} entries; "
+                         f"got {len(slot_tenant)}")
+    tb.slot_tenant = [None if t is None else int(t) for t in slot_tenant]
+    tb.slot_of = {t: s for s, t in enumerate(tb.slot_tenant) if t is not None}
+    h = tb.hot_capacity
+    tb._last_touch = [int(v) for v in (last_touch if last_touch is not None
+                                       else [0] * h)]
+    tb._touches = [int(v) for v in (touches if touches is not None
+                                    else [0] * h)]
+    tb.swap_count = int(swap_count)
+    for tenant, (c, n) in cold.items():
+        tb.load_cold(int(tenant), torch.from_numpy(np.array(c)), int(n))
+    return tb
+
+
+def tiered_to_numpy(tb: TieredBank) -> dict:
+    """A :class:`TieredBank`'s state as plain Python and numpy (evictions
+    landed first): the keyword arguments of :func:`tiered_bank`."""
+    tb.flush_evictions()
+    return dict(
+        num_tenants=tb.num_tenants, hot_capacity=tb.hot_capacity,
+        rows=tb.rows, buckets=tb.buckets, dtype=str(tb.dtype),
+        slot_tenant=list(tb.slot_tenant),
+        cold={t: (to_numpy(c), int(n)) for t, (c, n) in tb._cold.items()},
+        last_touch=list(tb._last_touch), touches=list(tb._touches),
+        swap_count=tb.swap_count,
+    )
 
 
 def directions(v, device: DeviceLike = None) -> torch.Tensor:

@@ -20,7 +20,8 @@
 //   * The rows are already augmented ([z, 0, pad], lsh.augment_data), so the
 //     kernel computes no pad: it projects every feature, in index order, with
 //     __fmul_rn/__fadd_rn (no FMA contraction), as the plain PyTorch version
-//     does, and the two compare bit for bit.
+//     does, and the two compare bit for bit. The loop is storm::srp_code
+//     (insert_common.cuh), shared with srp_hash.cu.
 //   * Each thread owns one column of a bucket-major (2^p, threads) histogram in
 //     shared memory: one conflict-free read-modify-write per point.
 //   * Blocks merge with one integer atomicAdd per cell into an int32 table:
@@ -62,12 +63,7 @@ __global__ void hist_kernel(const float* __restrict__ x,
   const bool active = r < rows;
 
   float wr[P][DMAX];  // the row's weights, per plane
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-#pragma unroll
-    for (int i = 0; i < DMAX; ++i)
-      wr[j][i] = (active && i < d) ? w[((size_t)j * d + i) * rows + r] : 0.f;
-  }
+  storm::load_row_weights<P, DMAX>(w, r, d, rows, active, wr);
   // Thread tid owns column tid of the bucket-major histogram: no two threads
   // share a word, and a warp's accesses fall in 32 distinct banks.
   int* col = hs + tid;
@@ -90,16 +86,7 @@ __global__ void hist_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < DMAX; ++i)
         xa[i] = i < d ? xs[pt * d + i] : 0.f;
-      int code = 0;
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < DMAX; ++i)
-          if (i < d) acc = __fadd_rn(acc, __fmul_rn(xa[i], wr[j][i]));
-        code |= (acc > 0.f) << j;
-      }
-      col[code * blockDim.x] += inc;
+      col[storm::srp_code<P, DMAX>(xa, wr, d) * blockDim.x] += inc;
     }
   }
   if (!active) return;

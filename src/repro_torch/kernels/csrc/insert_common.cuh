@@ -1,6 +1,7 @@
-// Shared by the insert kernels (paired_hash_histogram.cu, hash_histogram.cu):
-// the grid sizing over (R-tile, n-chunk, tenant) and the saturating epilogue
-// that narrows the int32 histogram to int16/int8.
+// Shared by the insert kernels (paired_hash_histogram.cu, hash_histogram.cu)
+// and the SRP hash (srp_hash.cu): the grid sizing over (R-tile, n-chunk,
+// tenant), the one-row projection loop of the single-sided hash, and the
+// saturating epilogue that narrows the int32 histogram to int16/int8.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,6 +40,41 @@ inline cudaError_t insert_grid(int n, int rows, int threads, int tenants,
   *grid = dim3((unsigned)gx, (unsigned)gy, (unsigned)tenants);
   *chunk = (int)per;
   return cudaSuccess;
+}
+
+// Hash row r's weights, plane by plane, into registers: wr[j][i] =
+// w[j, i, r] for i < d, 0 beyond d and for an inactive row. w is (P, d, R).
+template <int P, int DMAX>
+__device__ __forceinline__ void load_row_weights(const float* __restrict__ w,
+                                                 int r, int d, int rows,
+                                                 bool active,
+                                                 float (&wr)[P][DMAX]) {
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i)
+      wr[j][i] = (active && i < d) ? w[((size_t)j * d + i) * rows + r] : 0.f;
+  }
+}
+
+// The SRP code of one point xa (d features) against one hash row wr:
+// sum_j (xa . wr[j] > 0) << j. Each plane's projection accumulates feature by
+// feature in index order, a rounded multiply then a rounded add (__fmul_rn /
+// __fadd_rn: no FMA contraction, no TF32), as the plain PyTorch version does
+// (kernels/ref.py, _project), so kernel and plain version agree bit for bit.
+template <int P, int DMAX>
+__device__ __forceinline__ int srp_code(const float (&xa)[DMAX],
+                                        const float (&wr)[P][DMAX], int d) {
+  int code = 0;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i)
+      if (i < d) acc = __fadd_rn(acc, __fmul_rn(xa[i], wr[j][i]));
+    code |= (acc > 0.f) << j;
+  }
+  return code;
 }
 
 template <typename T>

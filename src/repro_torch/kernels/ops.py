@@ -1,5 +1,4 @@
-"""Dispatch over the port's kernels (port of ``repro.kernels.ops`` without
-``srp_hash``).
+"""Dispatch over the port's kernels (port of ``repro.kernels.ops``).
 
 ``mode`` is one of:
 
@@ -21,6 +20,7 @@ import torch
 from repro_torch.core import lsh, sketch as sketch_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels import sketch_query as query_kernel
+from repro_torch.kernels import srp_hash as hash_kernel
 from repro_torch.kernels import storm_sketch as histogram_kernel
 
 Tensor = torch.Tensor
@@ -40,6 +40,19 @@ def _plain(mode: str, t: Tensor) -> bool:
 def from_lsh_params(params: lsh.LSHParams) -> Tensor:
     """Core-layout projections ``(R, p, d)`` -> kernel layout ``(p, d, R)``."""
     return params.projections.permute(1, 2, 0).contiguous()
+
+
+def srp_hash(x: Tensor, w: Tensor, mode: str = "auto") -> Tensor:
+    """Bucket codes ``(n, R)`` int32 of ``x: (n, d)`` under ``w: (p, d, R)``.
+
+    ``repro.kernels.ops.srp_hash`` takes the Pallas kernel only from
+    ``d >= 64`` off the TPU; here every CUDA call is one launch of the
+    Hopper kernel, whatever ``d``.
+    """
+    x = x.to(torch.float32).contiguous()
+    if _plain(mode, x):
+        return ref.srp_hash(x, w)
+    return hash_kernel.srp_hash(x, w.to(torch.float32).contiguous())
 
 
 def _ones_mask(shape, device) -> Tensor:
@@ -125,13 +138,16 @@ def hash_histogram_banked(
 
 
 def sketch_query(q: Tensor, w: Tensor, counts: Tensor, mode: str = "auto",
-                 sketch_idx: Optional[Tensor] = None) -> Tensor:
+                 sketch_idx: Optional[Tensor] = None,
+                 index_checked: bool = False) -> Tensor:
     """Batched RACE query: ``(m,)`` mean counts at the query codes.
 
     Any batch size goes to the kernel. With ``sketch_idx`` (``(m,)``
     integers) the query is banked: ``counts`` is an ``(S, R, B)`` stack and
-    point ``i`` reads table ``sketch_idx[i]``. uint16 counters (which the
-    kernel does not read) are widened to int32 first.
+    point ``i`` reads table ``sketch_idx[i]``; ``index_checked``, where the
+    caller has checked the index range on the host, spares the kernel
+    wrapper its read of it (``sketch_query.sketch_query_banked``). uint16
+    counters (which the kernel does not read) are widened to int32 first.
     """
     if (sketch_idx is not None) != (counts.ndim == 3) or counts.ndim not in (
             2, 3):
@@ -150,7 +166,7 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor, mode: str = "auto",
     if plain:
         return ref.sketch_query_banked(q, w, counts, sketch_idx)
     return query_kernel.sketch_query_banked(q, w, counts.contiguous(),
-                                            sketch_idx)
+                                            sketch_idx, index_checked)
 
 
 def build_sketch(
@@ -165,6 +181,7 @@ def build_sketch(
 def query_theta_with_weights(
     sk, w: Tensor, theta_tilde: Tensor, paired: bool = True,
     mode: str = "auto", sketch_idx: Optional[Tensor] = None,
+    index_checked: bool = False,
 ) -> Tensor:
     """Surrogate-risk estimate with pre-transposed kernel weights.
 
@@ -175,7 +192,8 @@ def query_theta_with_weights(
     ``sk`` may be a :class:`~repro_torch.core.sketch.SketchBank`; then
     ``sketch_idx`` (``(m,)``, one entry per row of a 2-D ``theta_tilde``)
     routes each point to its table, and the denominator is that sketch's
-    own ``n`` (doubled when paired).
+    own ``n`` (doubled when paired); ``index_checked`` as in
+    :func:`sketch_query`.
     """
     banked = isinstance(sk, sketch_lib.SketchBank)
     if banked != (sketch_idx is not None):
@@ -184,7 +202,8 @@ def query_theta_with_weights(
     if banked:
         if theta_tilde.ndim != 2:
             raise ValueError("banked queries need a (m, dim) theta batch")
-        mean = sketch_query(q, w, sk.counts, mode=mode, sketch_idx=sketch_idx)
+        mean = sketch_query(q, w, sk.counts, mode=mode, sketch_idx=sketch_idx,
+                            index_checked=index_checked)
         n_per = sk.n[sketch_idx.long()]
     else:
         mean = sketch_query(torch.atleast_2d(q), w, sk.counts, mode=mode)

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -89,15 +88,21 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
 
 
 def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
-                        sketch_idx: Tensor) -> Tensor:
+                        sketch_idx: Tensor,
+                        index_checked: bool = False) -> Tensor:
     """``(m,)`` fp32: point ``i`` is the mean of table ``sketch_idx[i]``.
 
     Args:
       q: ``(m, d)`` query vectors (already normalized and augmented).
       w: ``(p, d, R)`` hyperplane normals, shared by the bank.
       counts: ``(S, R, 2**p)`` int32, int16 or int8 counters.
-      sketch_idx: ``(m,)`` integer table index per point, each in
-        ``[0, S)`` (checked here: one read back to the host per call).
+      sketch_idx: ``(m,)`` integer table index per point, each in ``[0, S)``.
+      index_checked: the caller has made sure, on the host, that every
+        entry of ``sketch_idx`` lies in ``[0, S)``. Then nothing is read
+        back from the device, and a wrong entry is an out-of-range read on
+        the card, not an error: the caller is responsible for the range.
+        ``False`` checks the entries here, at one read back to the host
+        per call.
     """
     if counts.ndim != 3 or sketch_idx.shape != (q.shape[0],):
         raise ValueError(f"need counts (S, R, B) and sketch_idx (m,); got "
@@ -107,7 +112,7 @@ def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
                          f"{q.device}; got {sketch_idx.dtype} on "
                          f"{sketch_idx.device}")
     idx = sketch_idx.to(torch.int32).contiguous()
-    if idx.numel():
+    if not index_checked and idx.numel():
         lo, hi = torch.stack(torch.aminmax(idx)).tolist()
         if lo < 0 or hi >= counts.shape[0]:
             raise ValueError(f"sketch_idx must lie in [0, {counts.shape[0]});"

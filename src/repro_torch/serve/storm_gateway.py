@@ -1,0 +1,757 @@
+"""STORM serving gateway: one fused banked insert and one fused banked query
+per tick (port of ``repro.serve.storm_gateway``, meshless and non-private).
+
+The serving unit is a :class:`~repro_torch.core.sketch.SketchBank`: S
+tenants' counter tables behind one endpoint under one hash family. The
+gateway micro-batches three request classes over fixed engine ticks:
+
+* **ingest**: ``(tenant, z-rows)`` appended to that tenant's counters. All
+  pending rows coalesce into ONE banked insert per tick
+  (``ops.paired_hash_histogram_banked``, or the single-sided
+  ``ops.hash_histogram_banked``, over a mask-padded ``(S, I, dim)`` stack).
+* **query**: the sketch loss of a theta batch against a tenant's sketch.
+  All pending points coalesce into ONE banked
+  ``ops.query_theta_with_weights(bank, ..., sketch_idx)`` call.
+* **fit**: one ``erm.fit_many`` over a tenant cohort's served counters,
+  run in ``tick_finish``. The cohort's counters are gathered on the device
+  in ``tick_start``, right behind the tick's ingest, so a fit reads the
+  counters of the tick it rides on at any pipeline depth.
+
+Per-tenant slot capacities (``ingest_slots`` rows, ``query_slots`` points)
+fix every buffer shape; masks mark real traffic and overflow waits for the
+next tick. A tick runs one of three bodies (ingest + query, ingest only,
+query only) over buffers allocated once at construction, so
+``trace_count``, the number of distinct (body, shapes, dtype) signatures
+that have run, stays <= 3 for any request mix. The bodies have fixed shapes
+and never wait for the host, so they can be captured as CUDA graphs.
+Within a mixed tick ingest applies first and queries read the post-ingest
+counters (read-your-writes).
+
+**Stages.** :meth:`StormGateway.tick_start` packs pending traffic straight
+into a pinned host staging buffer, ships it to the device in ONE
+asynchronous copy (``[zbuf | zmask | qbuf | qmask]``, only the halves that
+carry traffic) and launches the tick body on the current stream without
+waiting for anything: the counters are updated in place, and the query
+estimates are copied back into pinned host memory asynchronously, behind an
+event. :meth:`tick_finish` waits for that event (the serving loop's ONLY
+device->host sync, which waits for this tick's work and not for the ticks
+launched after it) and reports completions. ``tick()`` is
+``tick_finish(tick_start())``; a caller may keep ``depth`` ticks in flight.
+The staging buffers form a ring, and a
+buffer is refilled only after the event recorded behind its last copy has
+passed (the host waits there only when it runs a whole ring ahead of the
+device; ``staging_waits`` counts those waits). Packing (the only queue
+mutation) happens at start time in dispatch order and every tick runs on
+one stream, so the pipelined loop is bit-identical to the synchronous one.
+
+Correctness contract: a tenant's counters after any interleaving of ticks
+equal the lone ``sketch_dataset`` build of its stream bit for bit; query
+results equal standalone ``ops.query_theta_with_weights`` calls against the
+tenant's lone sketch; a gateway fit equals the offline ``erm.fit_many``
+over the same counters and seed.
+
+Not ported yet: the privacy layer (the reference's fourth tick body and its
+``privacy``/``private_view`` arguments) and the tenant mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Deque, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import dfo, erm, fleet, losses, lsh, sketch as sketch_lib
+from repro_torch.device import DeviceLike, generator as make_generator
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+Tensor = torch.Tensor
+
+STAGING_SLOTS = 4  # host staging buffers: one more than the deepest pipeline
+
+
+class Backpressure(RuntimeError):
+    """A submit would exceed a tenant's bounded-queue capacity.
+
+    The caller should drain completions and resubmit.
+    """
+
+    def __init__(self, tenant: int, kind: str, pending: int, requested: int,
+                 limit: int):
+        super().__init__(
+            f"tenant {tenant} {kind} queue full: {pending} pending + "
+            f"{requested} requested > cap {limit}"
+        )
+        self.tenant = tenant
+        self.kind = kind  # "ingest" | "query"
+        self.pending = pending
+        self.requested = requested
+        self.limit = limit
+
+
+class TickBudgetExceeded(RuntimeError):
+    """``run_until_idle`` exhausted its tick budget with requests pending.
+
+    The results that did complete ride along as ``completed``, and the
+    number of still-queued requests as ``pending``.
+    """
+
+    def __init__(self, pending: int, completed: List["QueryResult"]):
+        super().__init__(f"{pending} requests still pending after the tick "
+                         f"budget ({len(completed)} results completed)")
+        self.pending = pending
+        self.completed = completed
+
+
+@dataclasses.dataclass
+class IngestRequest:
+    """Append ``z`` rows to a tenant's counters: pre-scaled sketch-space
+    points (``params.dim - 2`` wide) for a paired gateway, pre-augmented
+    points (``params.dim`` wide, ``lsh.augment_data``) for a single-sided
+    one. Rows beyond the tick capacity spill to later ticks."""
+
+    rid: int
+    tenant: int
+    z: np.ndarray
+
+
+@dataclasses.dataclass
+class QueryRequest:
+    """Evaluate the sketch loss at ``thetas`` (``(q, dim)`` iterates)
+    against a tenant's sketch."""
+
+    rid: int
+    tenant: int
+    thetas: np.ndarray
+
+
+@dataclasses.dataclass
+class FitRequest:
+    """Train a tenant cohort from its SERVED counters: one ``erm.fit_many``
+    over the named tenants' live sketches, run in ``tick_finish``.
+
+    ``surrogate`` names a registered :mod:`repro_torch.core.losses` spec
+    whose insert flavor matches the gateway's (``spec.paired ==
+    gw.paired``). ``seed`` seeds the fit's ``torch.Generator``.
+    """
+
+    rid: int
+    tenants: Sequence[int]          # the cohort, in result-row order
+    surrogate: str = "prp_regression"
+    seed: int = 0
+    restarts: int = 1
+    l2: float = 0.0
+    steps: int = 100                # DFO steps (serving fits favor short runs)
+    num_queries: int = 8
+    sigma: float = 0.5
+    learning_rate: float = 1.0
+    decay: float = 0.995
+    refine_steps: Optional[int] = None  # None -> the surrogate's default
+
+
+@dataclasses.dataclass
+class FitResult:
+    """Iterate-space cohort fit: row ``i`` is ``tenants[i]``'s model."""
+
+    rid: int
+    tenants: List[int]
+    theta: np.ndarray         # (S, dim) float32
+    fleet_losses: np.ndarray  # (S, F) final sketch-loss per restart member
+    status: str = "ok"
+
+
+@dataclasses.dataclass
+class QueryResult:
+    rid: int
+    tenant: int
+    losses: np.ndarray  # (q,) float32, row i for thetas[i]
+    status: str = "ok"
+
+
+@dataclasses.dataclass
+class IngestResult:
+    """An ingest request's final row reached the counters this tick."""
+
+    rid: int
+    tenant: int
+    rows: int
+
+
+@dataclasses.dataclass
+class TickReport:
+    """What one engine tick did (completed requests only: a split request
+    reports once, on the tick that finishes it)."""
+
+    tick: int
+    results: List[QueryResult]
+    rows_ingested: int
+    points_served: int
+    ingest_done: List[IngestResult] = dataclasses.field(default_factory=list)
+    fits: List[FitResult] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _PendingIngest:
+    req: IngestRequest
+    cursor: int = 0
+
+
+@dataclasses.dataclass
+class _PendingQuery:
+    req: QueryRequest
+    cursor: int = 0
+    out: Optional[np.ndarray] = None
+    status: str = "ok"
+
+
+@dataclasses.dataclass
+class InflightTick:
+    """One dispatched-but-unread tick.
+
+    Everything queue-related was resolved at :meth:`StormGateway.tick_start`;
+    ``est`` holds the query estimates: on the card a pinned host tensor that
+    an asynchronous copy fills, complete once the event ``ready`` has
+    passed (on the CPU the estimates themselves, ``ready`` None), and
+    ``placements``/``completes``/``ingest_done`` are the host bookkeeping
+    that turns the readback into :class:`TickReport` entries; ``fits`` pairs
+    each fit request with its cohort's int32 counters, gathered behind the
+    tick's ingest.
+    """
+
+    tick: int
+    est: Optional[Tensor]
+    placements: list  # (pending, req_offset, tenant, slot_offset, count)
+    completes: List[_PendingQuery]
+    ingest_done: List[IngestResult]
+    rows: int
+    points: int
+    fits: list = dataclasses.field(default_factory=list)  # (req, sub-bank)
+    ready: Optional[torch.cuda.Event] = None
+
+
+def run_fit_request(req: FitRequest, bank: sketch_lib.SketchBank,
+                    params: lsh.LSHParams) -> FitResult:
+    """One cohort fit against an int32 sub-bank (row i = ``tenants[i]``).
+
+    The request's knobs map onto ONE ``erm.fit_many`` call on the bank's
+    device, seeded by ``device.generator(req.seed)``, so a gateway fit
+    equals the offline fit over the same counters and seed bit for bit.
+    """
+    dev = bank.counts.device
+    cfg = dfo.DFOConfig(
+        steps=req.steps, num_queries=req.num_queries, sigma=req.sigma,
+        learning_rate=req.learning_rate, decay=req.decay,
+    )
+    res = erm.fit_many(
+        req.surrogate, bank, params, cfg, restarts=req.restarts, l2=req.l2,
+        refine_steps=req.refine_steps,
+        generator=make_generator(req.seed, dev), device=dev,
+    )
+    return FitResult(rid=req.rid, tenants=list(req.tenants),
+                     theta=res.theta.cpu().numpy(),
+                     fleet_losses=res.fleet_losses.cpu().numpy())
+
+
+class _StagingRing:
+    """Host staging buffers for the fused per-tick transfer.
+
+    On the card they are pinned, so the copy to the device is asynchronous;
+    a buffer is handed out again only after the event recorded behind its
+    last copy has passed.
+    """
+
+    def __init__(self, size: int, device: torch.device):
+        self._pinned = device.type == "cuda"
+        self._bufs = [torch.zeros(size, dtype=torch.float32,
+                                  pin_memory=self._pinned)
+                      for _ in range(STAGING_SLOTS)]
+        self._events: List[Optional[torch.cuda.Event]] = [None] * len(
+            self._bufs)
+        self._next = 0
+        self.waits = 0
+
+    def acquire(self) -> int:
+        k = self._next
+        self._next = (k + 1) % len(self._bufs)
+        event = self._events[k]
+        if event is not None and not event.query():
+            self.waits += 1
+            event.synchronize()
+        return k
+
+    def buffer(self, k: int) -> Tensor:
+        return self._bufs[k]
+
+    def copied(self, k: int) -> None:
+        """Mark the end of buffer ``k``'s copy on the current stream."""
+        if self._pinned:
+            event = torch.cuda.Event()
+            event.record()
+            self._events[k] = event
+
+
+class StormGateway:
+    """Fixed-tick micro-batching gateway over a :class:`SketchBank`."""
+
+    def __init__(
+        self,
+        params: lsh.LSHParams,
+        tenants: int,
+        *,
+        paired: bool = True,
+        query_slots: int = 32,
+        ingest_slots: int = 128,
+        count_dtype=torch.int32,
+        mode: str = "auto",
+        bank: Optional[sketch_lib.SketchBank] = None,
+        max_pending_rows: Optional[int] = None,
+        max_pending_points: Optional[int] = None,
+        device: DeviceLike = None,
+    ):
+        """Args:
+          params: the ONE hash family shared by every tenant's sketch.
+          tenants: bank size S (fixed for the gateway's life).
+          paired: PRP sketches (regression, probes) or single-sided
+            (classification): sets the insert and the estimator's divisor.
+          query_slots: per-tenant theta capacity Q per tick.
+          ingest_slots: per-tenant row capacity I per tick.
+          count_dtype: counter dtype (a ``torch.dtype`` or its name); narrow
+            banks take the insert's narrow tile and add it saturating.
+          mode: kernel dispatch of both halves (``auto | kernel | ref``).
+          bank: optional warm-start counters ``(S, R, B)`` (copied; their
+            dtype overrides ``count_dtype``).
+          max_pending_rows / max_pending_points: per-tenant queue caps; a
+            submit beyond one raises :class:`Backpressure`. ``None`` leaves
+            the queue unbounded.
+          device: where the bank and the tick bodies live (``None``: the
+            card, raising without one).
+        """
+        if tenants < 1:
+            raise ValueError(f"need at least one tenant; got {tenants}")
+        if mode not in ops.MODES:
+            raise ValueError(f"unknown mode {mode!r}; use auto | kernel | ref")
+        dev = resolve_device(device)
+        self.device = dev
+        self.params = lsh.LSHParams(projections=params.projections.to(dev))
+        self.w = ops.from_lsh_params(self.params)
+        self.dim = self.params.dim - 2  # query iterate dim (theta_tilde rows)
+        self.ingest_dim = self.params.dim - 2 if paired else self.params.dim
+        self.tenants = tenants
+        self.paired = paired
+        self.query_slots = query_slots
+        self.ingest_slots = ingest_slots
+        self.mode = mode
+        self.max_pending_rows = max_pending_rows
+        self.max_pending_points = max_pending_points
+        if bank is None:
+            bank = sketch_lib.SketchBank(
+                counts=torch.zeros((tenants, self.params.rows,
+                                    self.params.buckets),
+                                   dtype=sketch_lib.counter_dtype(count_dtype),
+                                   device=dev),
+                n=torch.zeros((tenants,), dtype=torch.int32, device=dev),
+            )
+        if bank.counts.shape[0] != tenants:
+            raise ValueError(
+                f"bank holds {bank.counts.shape[0]} sketches for "
+                f"{tenants} tenants"
+            )
+        # The gateway owns its bank and updates it in place.
+        self._counts = bank.counts.to(dev).clone()
+        self._n = bank.n.to(dev, torch.int32).clone()
+        self.count_dtype = self._counts.dtype
+        self._ingest_q: Deque[_PendingIngest] = deque()
+        self._query_q: Deque[_PendingQuery] = deque()
+        self._fit_q: Deque[FitRequest] = deque()
+        self._pending_rows = [0] * tenants
+        self._pending_points = [0] * tenants
+        self.ticks = 0
+        self.rows_ingested = 0
+        self.points_served = 0
+        self.fits_run = 0
+        self._signatures: set = set()
+
+        # The fused transfer's layout [zbuf | zmask | qbuf | qmask], its
+        # device buffer and the views the tick bodies read.
+        s, i_cap, q_cap = tenants, ingest_slots, query_slots
+        self._z_end = s * i_cap * self.ingest_dim
+        self._zm_end = self._z_end + s * i_cap
+        self._q_end = self._zm_end + s * q_cap * self.dim
+        self._qm_end = self._q_end + s * q_cap
+        self._flat = torch.zeros(self._qm_end, dtype=torch.float32, device=dev)
+        self._zbuf, self._zmask, self._qbuf, self._qmask = self._views(
+            self._flat)
+        self._staging = _StagingRing(self._qm_end, dev)
+        # Tenant-major query slots: row i reads table i // Q (member-major
+        # routing with member_map = arange(S)): in [0, S) by construction,
+        # so the banked query takes it as checked and reads nothing back.
+        self._qidx = fleet.member_point_idx(
+            torch.arange(s, dtype=torch.int32, device=dev), s * q_cap)
+
+    def _views(self, flat: Tensor):
+        """``(zbuf, zmask, qbuf, qmask)`` views of a fused buffer."""
+        s, i_cap, q_cap = self.tenants, self.ingest_slots, self.query_slots
+        return (flat[:self._z_end].view(s, i_cap, self.ingest_dim),
+                flat[self._z_end:self._zm_end].view(s, i_cap),
+                flat[self._zm_end:self._q_end].view(s * q_cap, self.dim),
+                flat[self._q_end:self._qm_end])
+
+    # -- request plumbing ---------------------------------------------------
+
+    def submit(self, req: Union[IngestRequest, QueryRequest, FitRequest]
+               ) -> None:
+        if isinstance(req, FitRequest):
+            cohort = [int(t) for t in req.tenants]
+            if not cohort:
+                raise ValueError("fit cohort is empty")
+            for t in cohort:
+                if not 0 <= t < self.tenants:
+                    raise ValueError(f"fit tenant {t} out of range "
+                                     f"[0, {self.tenants})")
+            spec = losses.get_surrogate(req.surrogate)
+            if spec.paired != self.paired:
+                flavor = ("paired (PRP)", "single-sided")
+                raise ValueError(
+                    f"surrogate '{spec.name}' expects "
+                    f"{flavor[0] if spec.paired else flavor[1]} counters but "
+                    f"this gateway ingests "
+                    f"{flavor[0] if self.paired else flavor[1]}"
+                )
+            self._fit_q.append(dataclasses.replace(req, tenants=cohort))
+            return
+        if not isinstance(req, (IngestRequest, QueryRequest)):
+            raise TypeError(f"unknown request type {type(req).__name__}")
+        if not 0 <= req.tenant < self.tenants:
+            raise ValueError(f"tenant {req.tenant} out of range "
+                             f"[0, {self.tenants})")
+        if isinstance(req, IngestRequest):
+            z = np.asarray(req.z, np.float32)
+            if z.ndim != 2 or z.shape[1] != self.ingest_dim:
+                raise ValueError(
+                    f"ingest rows must be (rows, {self.ingest_dim}); got "
+                    f"{z.shape}"
+                )
+            if self.max_pending_rows is not None and (
+                    self._pending_rows[req.tenant] + z.shape[0]
+                    > self.max_pending_rows):
+                raise Backpressure(req.tenant, "ingest",
+                                   self._pending_rows[req.tenant],
+                                   z.shape[0], self.max_pending_rows)
+            self._pending_rows[req.tenant] += z.shape[0]
+            self._ingest_q.append(_PendingIngest(dataclasses.replace(req, z=z)))
+        else:
+            th = np.asarray(req.thetas, np.float32)
+            if th.ndim != 2 or th.shape[1] != self.dim:
+                raise ValueError(f"query thetas must be (q, {self.dim}); "
+                                 f"got {th.shape}")
+            if self.max_pending_points is not None and (
+                    self._pending_points[req.tenant] + th.shape[0]
+                    > self.max_pending_points):
+                raise Backpressure(req.tenant, "query",
+                                   self._pending_points[req.tenant],
+                                   th.shape[0], self.max_pending_points)
+            self._pending_points[req.tenant] += th.shape[0]
+            self._query_q.append(_PendingQuery(
+                dataclasses.replace(req, thetas=th),
+                out=np.zeros((th.shape[0],), np.float32),
+            ))
+
+    def submit_many(self, reqs: Sequence[Union[IngestRequest, QueryRequest,
+                                               FitRequest]]) -> None:
+        for r in reqs:
+            self.submit(r)
+
+    @property
+    def pending(self) -> int:
+        return len(self._ingest_q) + len(self._query_q) + len(self._fit_q)
+
+    def queue_stats(self) -> dict:
+        """Host-side gateway state for monitoring.
+
+        ``pending_depth[t]`` is the number of queued REQUESTS of tenant
+        ``t`` (ingest + query; a split request counts once).
+        """
+        depth = [0] * self.tenants
+        for st in self._ingest_q:
+            depth[st.req.tenant] += 1
+        for st in self._query_q:
+            depth[st.req.tenant] += 1
+        return {
+            "tenants": self.tenants,
+            "ticks": self.ticks,
+            "pending_requests": self.pending,
+            "pending_depth": depth,
+            "pending_rows": list(self._pending_rows),
+            "pending_points": list(self._pending_points),
+            "pending_fits": len(self._fit_q),
+            "rows_ingested": self.rows_ingested,
+            "points_served": self.points_served,
+            "fits_run": self.fits_run,
+            "trace_count": self.trace_count,
+        }
+
+    @property
+    def bank(self) -> sketch_lib.SketchBank:
+        """The live counter bank: the gateway's own tensors, which later
+        ticks update in place (clone to keep a snapshot)."""
+        return sketch_lib.SketchBank(counts=self._counts, n=self._n)
+
+    def sketch_of(self, tenant: int) -> sketch_lib.Sketch:
+        """Tenant ``tenant``'s sketch as a standalone view."""
+        return self.bank.select(tenant)
+
+    @property
+    def trace_count(self) -> int:
+        """Distinct (body, shapes, dtype) signatures the tick bodies have
+        run: <= 3 for any request mix over the gateway's life."""
+        return len(self._signatures)
+
+    @property
+    def staging_waits(self) -> int:
+        """Times ``tick_start`` waited for a staging buffer's last copy."""
+        return self._staging.waits
+
+    # -- the tick bodies ------------------------------------------------------
+
+    def _ingest_half(self) -> None:
+        """ONE banked insert over the ``(S, I, dim)`` stack, added in place.
+
+        Narrow banks take the insert's narrow tile (int32 inside the
+        kernel, one saturating cast) and add it saturating; increments are
+        non-negative, so ``clamp(counts + clamp(tile))`` equals
+        ``clamp(counts + tile)``. Padded slots add ``int(0)``.
+        """
+        insert = (ops.paired_hash_histogram_banked if self.paired
+                  else ops.hash_histogram_banked)
+        tile = insert(self._zbuf, self.w, self._zmask, mode=self.mode,
+                      out_dtype=self.count_dtype)
+        self._counts.copy_(sketch_lib.saturating_add(self._counts, tile))
+        self._n += self._zmask.sum(dim=1).to(torch.int32)
+
+    def _query_half(self) -> Tensor:
+        """ONE banked query over the ``(S*Q, dim)`` slots; masked slots
+        return 0.0."""
+        est = ops.query_theta_with_weights(
+            self.bank, self.w, self._qbuf, paired=self.paired,
+            mode=self.mode, sketch_idx=self._qidx, index_checked=True)
+        return torch.where(self._qmask > 0, est, 0.0)
+
+    def _run_body(self, ingest: bool, query: bool) -> Optional[Tensor]:
+        """Run one of the three bodies (full, ingest-only, query-only)."""
+        name = {(True, True): "full", (True, False): "ingest",
+                (False, True): "query"}[(ingest, query)]
+        shapes = tuple(tuple(t.shape) for t in (
+            self._counts, self._n, self._zbuf, self._qbuf))
+        self._signatures.add((name, shapes, self.count_dtype))
+        if ingest:
+            self._ingest_half()
+        return self._query_half() if query else None
+
+    # -- packing --------------------------------------------------------------
+
+    def _pack_ingest(self, zbuf: np.ndarray, zmask: np.ndarray):
+        i_cap = self.ingest_slots
+        fill = [0] * self.tenants
+        taken = 0
+        done: List[IngestResult] = []
+        for st in self._ingest_q:
+            t = st.req.tenant
+            take = min(i_cap - fill[t], st.req.z.shape[0] - st.cursor)
+            if take <= 0:
+                continue
+            zbuf[t, fill[t]:fill[t] + take] = st.req.z[
+                st.cursor:st.cursor + take]
+            zmask[t, fill[t]:fill[t] + take] = 1.0
+            st.cursor += take
+            fill[t] += take
+            taken += take
+            self._pending_rows[t] -= take
+        remaining: Deque[_PendingIngest] = deque()
+        for st in self._ingest_q:
+            if st.cursor < st.req.z.shape[0]:
+                remaining.append(st)
+            else:
+                done.append(IngestResult(st.req.rid, st.req.tenant,
+                                         st.req.z.shape[0]))
+        self._ingest_q = remaining
+        return taken, done
+
+    def _pack_queries(self, qbuf: np.ndarray, qmask: np.ndarray):
+        q_cap = self.query_slots
+        fill = [0] * self.tenants
+        placements = []  # (pending, req_offset, tenant, slot_offset, count)
+        for st in self._query_q:
+            t = st.req.tenant
+            take = min(q_cap - fill[t], st.req.thetas.shape[0] - st.cursor)
+            if take <= 0:
+                continue
+            qbuf[t, fill[t]:fill[t] + take] = st.req.thetas[
+                st.cursor:st.cursor + take]
+            qmask[t, fill[t]:fill[t] + take] = 1.0
+            placements.append((st, st.cursor, t, fill[t], take))
+            st.cursor += take
+            fill[t] += take
+            self._pending_points[t] -= take
+        # Fully packed requests leave the queue now (dispatch order) and
+        # report at finish, zero-row requests included.
+        completes: List[_PendingQuery] = []
+        remaining: Deque[_PendingQuery] = deque()
+        for st in self._query_q:
+            if st.cursor == st.req.thetas.shape[0]:
+                completes.append(st)
+            else:
+                remaining.append(st)
+        self._query_q = remaining
+        return placements, completes
+
+    # -- the tick -------------------------------------------------------------
+
+    def tick_start(self) -> InflightTick:
+        """Pack pending traffic and launch the tick WITHOUT waiting.
+
+        All queue mutation happens here, in dispatch order. The counters
+        advance in place on the device's stream; the returned
+        :class:`InflightTick` carries the unread estimates and the host
+        bookkeeping :meth:`tick_finish` needs.
+        """
+        self.ticks += 1
+        if not self._ingest_q and not self._query_q:
+            return InflightTick(tick=self.ticks, est=None, placements=[],
+                                completes=[], ingest_done=[], rows=0,
+                                points=0, fits=self._gather_fits())
+        k = self._staging.acquire()
+        host = self._staging.buffer(k)
+        s = self.tenants
+        zbuf, zmask, qbuf, qmask = (v.numpy() for v in self._views(host))
+        rows, ingest_done = 0, []
+        if self._ingest_q:
+            host[:self._zm_end].zero_()
+            rows, ingest_done = self._pack_ingest(zbuf, zmask)
+        placements, completes = [], []
+        if self._query_q:
+            host[self._zm_end:].zero_()
+            placements, completes = self._pack_queries(
+                qbuf.reshape(s, self.query_slots, self.dim),
+                qmask.reshape(s, self.query_slots))
+        do_ingest, do_query = rows > 0, bool(placements)
+        est, ready = None, None
+        if do_ingest or do_query:
+            lo = 0 if do_ingest else self._zm_end
+            hi = self._qm_end if do_query else self._zm_end
+            self._flat[lo:hi].copy_(host[lo:hi], non_blocking=True)
+            self._staging.copied(k)
+            est = self._run_body(do_ingest, do_query)
+        if est is not None and est.is_cuda:
+            # Queue the readback now: waiting on its event waits for this
+            # tick's work only, not for ticks launched after it.
+            est_host = torch.empty(est.shape, dtype=est.dtype,
+                                   pin_memory=True)
+            est_host.copy_(est, non_blocking=True)
+            est, ready = est_host, torch.cuda.Event()
+            ready.record()
+        points = sum(take for *_, take in placements)
+        return InflightTick(tick=self.ticks, est=est, placements=placements,
+                            completes=completes, ingest_done=ingest_done,
+                            rows=rows, points=points,
+                            fits=self._gather_fits(), ready=ready)
+
+    def _gather_fits(self) -> list:
+        """Take the fit queue: each request with an int32 copy of its
+        cohort's counters, made on the device behind this tick's ingest
+        (no host read); the fits run in :meth:`tick_finish`."""
+        out = []
+        while self._fit_q:
+            req = self._fit_q.popleft()
+            out.append((req, sketch_lib.SketchBank(
+                counts=torch.stack([self._counts[t] for t in req.tenants]
+                                   ).to(torch.int32),
+                n=torch.stack([self._n[t] for t in req.tenants]))))
+        return out
+
+    def _run_fits(self, fits: list) -> List[FitResult]:
+        """One ``erm.fit_many`` per gathered request; the tick bodies and
+        the counters are untouched."""
+        out = [run_fit_request(req, sub, self.params) for req, sub in fits]
+        self.fits_run += len(out)
+        return out
+
+    def tick_finish(self, inflight: InflightTick) -> TickReport:
+        """Read back one launched tick's estimates and report completions.
+
+        Waiting for the estimates here is the ONLY device->host sync of the
+        serving loop, and it waits for this tick's work alone. Finish ticks
+        in dispatch order. The tick's fits run here, over the counters
+        gathered behind its ingest.
+        """
+        results: List[QueryResult] = []
+        if inflight.ready is not None:
+            inflight.ready.synchronize()
+        if inflight.est is not None:
+            losses_ = inflight.est.numpy().reshape(self.tenants,
+                                                   self.query_slots)
+            for st, req_off, t, slot_off, take in inflight.placements:
+                st.out[req_off:req_off + take] = \
+                    losses_[t, slot_off:slot_off + take]
+        for st in inflight.completes:
+            results.append(QueryResult(st.req.rid, st.req.tenant, st.out,
+                                       status=st.status))
+        self.rows_ingested += inflight.rows
+        self.points_served += inflight.points
+        fits = self._run_fits(inflight.fits)
+        return TickReport(tick=inflight.tick, results=results,
+                          rows_ingested=inflight.rows,
+                          points_served=inflight.points,
+                          ingest_done=inflight.ingest_done,
+                          fits=fits)
+
+    def tick(self) -> TickReport:
+        """One synchronous tick: ``tick_finish(tick_start())``."""
+        return self.tick_finish(self.tick_start())
+
+    def run_until_idle(self, max_ticks: int = 10_000, *,
+                       pipelined: bool = False,
+                       depth: int = 2) -> List[QueryResult]:
+        """Tick until every pending request is served; returns all results.
+
+        ``pipelined=True`` keeps up to ``depth`` ticks in flight (bit-identical
+        results and counters). On budget exhaustion raises
+        :class:`TickBudgetExceeded` carrying the results that did complete.
+        """
+        return drain(self, max_ticks, pipelined, depth)
+
+
+def report_key(rep: TickReport) -> tuple:
+    """Everything a tick report says, fit results included, as plain values
+    (arrays as their bytes): two runs served the same iff their reports'
+    keys are equal. Reports of the JAX gateway key the same way."""
+    return (rep.tick, rep.rows_ingested, rep.points_served,
+            [(r.rid, r.tenant, r.status, np.asarray(r.losses).tobytes())
+             for r in rep.results],
+            [(i.rid, i.tenant, i.rows) for i in rep.ingest_done],
+            [(f.rid, tuple(f.tenants), f.status, np.asarray(f.theta).tobytes(),
+              np.asarray(f.fleet_losses).tobytes()) for f in rep.fits])
+
+
+def drain(gw, max_ticks: int, pipelined: bool, depth: int
+          ) -> List[QueryResult]:
+    """The drain loop of both gateways (``gw.run_until_idle``)."""
+    out: List[QueryResult] = []
+    if pipelined:
+        inflight: Deque[InflightTick] = deque()
+        while gw.pending or inflight:
+            while gw.pending and len(inflight) < depth and max_ticks > 0:
+                inflight.append(gw.tick_start())
+                max_ticks -= 1
+            if not inflight:
+                break  # pending traffic but no tick budget left
+            out.extend(gw.tick_finish(inflight.popleft()).results)
+    else:
+        while gw.pending and max_ticks > 0:
+            out.extend(gw.tick().results)
+            max_ticks -= 1
+    if gw.pending:
+        raise TickBudgetExceeded(gw.pending, out)
+    return out

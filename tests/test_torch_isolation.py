@@ -28,8 +28,13 @@ def test_port_imports_neither_jax_nor_repro():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("repro_torch.core.regression",
                  "repro_torch.core.classification",
+                 "repro_torch.core.tiered",
                  "repro_torch.kernels.storm_sketch",
-                 "repro_torch.kernels.sketch_query"):
+                 "repro_torch.kernels.sketch_query",
+                 "repro_torch.kernels.srp_hash",
+                 "repro_torch.serve.storm_gateway",
+                 "repro_torch.serve.tiered_gateway",
+                 "repro_torch.launch.storm_serve"):
         assert name in report["modules"]
         assert name in report["loaded"]
     leaked = [m for m in report["loaded"]

@@ -16,10 +16,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels import sketch_query as jquery
+from repro.kernels import srp_hash as jhash
 from repro.kernels import storm_sketch as jstorm
 from repro_torch.core import lsh, sketch
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import sketch_query as query_kernel
+from repro_torch.kernels import srp_hash as hash_kernel
 from repro_torch.kernels import storm_sketch as histogram_kernel
 from torch_parity import t, unit_ball_rows
 
@@ -157,9 +159,10 @@ def test_ops_sketch_stream_and_query_theta():
 def test_build_paths_are_content_addressed():
     srcs = _build.sources()
     assert {s.stem for s in srcs} == {"paired_hash_histogram",
-                                      "hash_histogram", "sketch_query"}
+                                      "hash_histogram", "sketch_query",
+                                      "srp_hash"}
     paths = [_build.library_path(s) for s in srcs]
-    assert len(set(paths)) == 3
+    assert len(set(paths)) == 4
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -173,3 +176,35 @@ def test_build_paths_cover_the_shared_headers(tmp_path, monkeypatch):
     header = tmp_path / "insert_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build.library_path(src) != before
+
+
+@pytest.mark.parametrize("seed,n,d,r,p", [
+    (0, 1, 11, 33, 1), (1, 300, 12, 256, 4), (2, 513, 70, 33, 8),
+    (3, 300, 70, 256, 1), (4, 513, 11, 256, 4), (5, 1, 12, 33, 8),
+])
+def test_srp_hash_equals_jax(seed, n, d, r, p):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    w = rng.normal(size=(p, d, r)).astype(np.float32)
+    got = ops.srp_hash(t(x), t(w), mode="ref")
+    assert got.dtype == torch.int32 and got.shape == (n, r)
+    assert int(got.max()) < 1 << p and int(got.min()) >= 0
+    want_ref = jref.srp_hash(jnp.asarray(x), jnp.asarray(w))
+    want_kernel = jhash.srp_hash(jnp.asarray(x), jnp.asarray(w),
+                                 interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_ref))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_kernel))
+    assert torch.equal(ops.srp_hash(t(x), t(w)), got)  # auto on the CPU
+
+
+def test_srp_hash_wrapper_and_modes_on_cpu():
+    x = torch.randn(7, 5, generator=torch.Generator().manual_seed(1))
+    w = torch.randn(3, 5, 9, generator=torch.Generator().manual_seed(2))
+    before = hash_kernel.srp_hash.launches
+    assert torch.equal(hash_kernel.srp_hash(x, w), ref.srp_hash(x, w))
+    assert hash_kernel.srp_hash.launches == before  # no card, no launch
+    assert torch.equal(ops.srp_hash(x.double(), w), ref.srp_hash(x, w))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.srp_hash(x, w, mode="kernel")
+    with pytest.raises(ValueError, match="mode"):
+        ops.srp_hash(x, w, mode="interpret")

@@ -10,6 +10,8 @@ the comparisons are bit for bit; each slice of a banked insert also equals
 the lone kernel on that tenant.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -215,3 +217,126 @@ def test_classification_fit_on_the_card_runs_the_single_sided_insert(cuda):
     assert histogram_kernel.hash_histogram.launches == 1
     assert query_kernel.sketch_query.launches == 60 + 1
     assert float(fit.accuracy(x, y)) > 0.8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,r,p", [
+    (4096, 12, 2048, 4), (1001, 11, 33, 1), (777, 31, 2048, 8),
+    (513, 70, 256, 4), (300, 515, 33, 1), (257, 12, 100, 30), (0, 12, 64, 4),
+])
+def test_srp_hash_kernel_equals_plain_version(cuda, n, d, r, p):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import srp_hash as hash_kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(n + d + r + p)
+    x = torch.randn(n, d, generator=gen, device=cuda)
+    w = torch.randn(p, d, r, generator=gen, device=cuda)
+    before = hash_kernel.srp_hash.launches
+    got = ops.srp_hash(x, w)
+    assert hash_kernel.srp_hash.launches == before + (n > 0)
+    assert got.shape == (n, r) and got.dtype == torch.int32
+    assert torch.equal(got, ref.srp_hash(x, w))
+    with pytest.raises(ValueError, match="p <= 30"):
+        hash_kernel.srp_hash(x, torch.randn(31, d, r, device=cuda))
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Any device->host read (or blocking copy) raises inside."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+def test_banked_query_with_a_host_checked_index_reads_nothing_back(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    s = 8
+    w = torch.randn(4, 12, 2048, generator=gen, device=cuda)
+    counts = torch.randint(0, 1 << 20, (s, 2048, 16), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    q = torch.randn(136, 12, generator=gen, device=cuda)
+    idx = torch.arange(s, device=cuda, dtype=torch.int32)[:, None].expand(
+        s, 17).reshape(-1)
+    want = ref.sketch_query_banked(q, w, counts, idx)
+    with _no_host_sync():
+        got = query_kernel.sketch_query_banked(q, w, counts, idx,
+                                               index_checked=True)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="sketch_idx"):  # unchecked: refused
+        query_kernel.sketch_query_banked(q, w, counts, idx + 1)
+    with pytest.raises(RuntimeError):  # unchecked, the range is read back
+        with _no_host_sync():
+            query_kernel.sketch_query_banked(q, w, counts, idx)
+
+
+@pytest.mark.gpu
+def test_a_fit_many_dfo_step_reads_nothing_back(cuda):
+    from repro_torch.core import dfo, erm, fleet, lsh, sketch
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    s, dim = 4, 6
+    params = lsh.init_srp(gen, 512, 4, dim + 2, device=cuda)
+    zs = [lsh.scale_to_unit_ball(torch.randn(3000, dim, generator=gen,
+                                             device=cuda))[0]
+          for _ in range(s)]
+    bank = sketch.sketch_dataset_many(params, zs, engine="kernel",
+                                      device=cuda)
+    members = torch.arange(s, dtype=torch.int32, device=cuda)
+    loss_fn = erm.surrogate_loss_fn("prp_regression", bank, params,
+                                    member_map=members)
+    cfg = dfo.DFOConfig(steps=1, num_queries=8)
+    theta0, sig, lr = fleet.seed_fleet_many(s, 1, dim, cfg, generator=gen,
+                                            device=cuda)
+    dirs = dfo.sphere_directions(gen, 1, s, 8, dim, cuda)
+    proj = dfo.pin_last_coordinate(-1.0)
+    query_kernel.sketch_query_banked.launches = 0
+    with _no_host_sync():
+        res = dfo.minimize_fleet(loss_fn, theta0, cfg, project=proj,
+                                 sigma=sig, learning_rate=lr,
+                                 directions=dirs)
+    assert query_kernel.sketch_query_banked.launches == 1
+    assert torch.isfinite(res.theta).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [True, False])
+def test_gateway_tick_start_is_sync_free_and_equals_plain(cuda, paired):
+    from repro_torch.core import lsh
+    from repro_torch.serve.storm_gateway import (
+        IngestRequest, QueryRequest, StormGateway,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    s, dim = 4, 5
+    params = lsh.init_srp(gen, 256, 3, dim + 2, device=cuda)
+    rng = np.random.default_rng(8)
+    gws = [StormGateway(params, s, paired=paired, query_slots=8,
+                        ingest_slots=64, mode=mode, device=cuda)
+           for mode in ("auto", "ref")]
+    in_dim = dim if paired else dim + 2
+    for tick in range(6):
+        reqs = []
+        for t in range(s):
+            if tick != 3:
+                z = (0.3 * rng.normal(size=(50, in_dim))).astype(np.float32)
+                reqs.append(IngestRequest(rid=100 * tick + t, tenant=t, z=z))
+            if tick != 1:
+                th = rng.normal(size=(5, dim)).astype(np.float32)
+                reqs.append(QueryRequest(rid=100 * tick + 50 + t, tenant=t,
+                                         thetas=th))
+        reports = []
+        for gw in gws:
+            gw.submit_many(reqs)
+            with _no_host_sync():
+                inflight = gw.tick_start()
+            reports.append(gw.tick_finish(inflight))
+        assert [r.rid for r in reports[0].results] == \
+            [r.rid for r in reports[1].results]
+        for a, b in zip(reports[0].results, reports[1].results):
+            np.testing.assert_array_equal(a.losses, b.losses)
+    assert torch.equal(gws[0].bank.counts, gws[1].bank.counts)
+    assert gws[0].trace_count == 3
