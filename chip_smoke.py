@@ -10,8 +10,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
 1. device: the card's name and power limit.
 2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc.
 3. insert: ``paired_hash_histogram`` against its plain PyTorch version, bit
-   for bit, at the main path's full shape, at ragged shapes (p in {1, 4, 8},
-   partial masks) and with int16/int8 outputs that saturate.
+   for bit, at the main path's full shape, at ragged shapes (d in {1, 3, 4,
+   5, 10, 13, 16, 17, 31, 32}, p from 1 to 8, n in {0, 31, 33} and n % 32
+   != 0, partial masks), with integer-weighted masks (values 0-3 in some
+   tiles only) and with int16/int8 outputs that saturate.
 4. query: ``sketch_query`` against its plain version, bit for bit, on the
    full-size sketch for m in {17, 198, 4096, 1001}.
 5. fit: ``regression.fit`` at the full configuration (n = 2^22 rows at the
@@ -28,7 +30,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (R = 2048, p = 4) and single-sided (R = 1024, p = 2), over 16 tenants of
    2^18 rows (the last 1000 short), with the launch counts of that build;
    each slice against the lone kernel on that tenant and the whole bank
-   against the plain banked version, bit for bit.
+   against the plain banked version, bit for bit; then a gateway-shaped
+   paired bank (16 tenants x 4096 slots, about half masked, interleaved)
+   and an integer-weighted one, the same way.
 8. banked query: ``sketch_query_banked`` against its plain version, bit for
    bit, on the 16-tenant bank for m in {272, 16, 32, 3168, 4096}, and on its
    int16 and int8 copies.
@@ -45,10 +49,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
     scan engine, on the same draws.
 11. timings (run last): device time per launch of each of the seven
     kernels and its plain version at the shapes above, beside the least time
-    the card could take; where the time of the three fits goes; the
-    gateway's ticks/s, points/s and rows/s, synchronous and pipelined, its
-    tick latency (p50, p99) and, under the profiler, the device's busy share
-    and the insert's and query's device time per tick.
+    the card could take (the paired inserts, kernels 1 and 4, over three
+    profiler runs: min, median and max, and every kernel record); where the
+    time of the three fits goes; the gateway's ticks/s, points/s and rows/s,
+    synchronous and pipelined, its tick latency (p50, p99) and, under the
+    profiler, the device's busy share and the insert's and query's device
+    time per tick.
 12. srp_hash: ``ops.srp_hash`` (the entry point, one launch) at the
     regression family's hash (R = 2048, p = 4, 12 features) on 2^18 points
     and ``srp_hash`` at ragged shapes (d in {11, 31, 515}, R in {33, 2048},
@@ -323,9 +329,13 @@ def _kernel_named(symbol: str, name: str) -> bool:
     return f"::{symbol}" in name or f"{len(symbol)}{symbol}" in name
 
 
-def _device_ms(fn, calls: int, torch, symbol=None):
-    """Device time per call of ``fn`` (only the kernel ``symbol``, if given)
-    from torch.profiler; None if it saw no device work."""
+def _device_ms(fn, calls: int, torch, symbol=None, records=None):
+    """Device time per call of ``fn`` from torch.profiler; None if it saw no
+    device work. With ``symbol`` (a kernel that ``fn`` launches once per
+    call), the mean over the records of that kernel: the profiler has been
+    seen to drop a record of a long kernel, and dividing by ``calls`` then
+    undercounts. ``records``, a list, receives the µs of every matched
+    record."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -334,9 +344,13 @@ def _device_ms(fn, calls: int, torch, symbol=None):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(us for name, us in _device_events(prof)
-                if symbol is None or _kernel_named(symbol, name))
-    return total / calls / 1e3 if total > 0 else None
+    matched = [us for name, us in _device_events(prof)
+               if symbol is None or _kernel_named(symbol, name)]
+    if records is not None:
+        records.extend(matched)
+    total = sum(matched)
+    per = len(matched) if symbol is not None else calls
+    return total / per / 1e3 if total > 0 else None
 
 
 def _fit_profile(label, fit, torch, symbols):
@@ -380,14 +394,20 @@ def _gateway_profile(torch, gw, script):
         wall = 1e3 * (time.perf_counter() - start)
     events = _device_events(prof)
     busy = sum(us for _, us in events) / 1e3
-    per_tick = {sym: sum(us for n, us in events if _kernel_named(sym, n))
-                / 1e3 / len(reps)
-                for sym in ("paired_hist_kernel", "sketch_query_kernel")}
+    # A full tick launches each kernel once: per tick is the mean over the
+    # kernel's records (the profiler may drop one).
+    per_tick, seen = {}, {}
+    for sym in ("paired_hist_kernel", "sketch_query_kernel"):
+        mine = [us for n, us in events if _kernel_named(sym, n)]
+        seen[sym] = len(mine)
+        per_tick[sym] = sum(mine) / 1e3 / max(len(mine), 1)
     _log(f"[time] gateway under the profiler: {len(reps)} full pipelined "
          f"ticks, {wall:.3f} ms wall, device busy {busy:.3f} ms "
          f"({100 * busy / wall:.2f}%); per tick: insert "
-         f"{per_tick['paired_hist_kernel']:.4f} ms, query "
-         f"{per_tick['sketch_query_kernel']:.4f} ms")
+         f"{per_tick['paired_hist_kernel']:.4f} ms "
+         f"({seen['paired_hist_kernel']} records), query "
+         f"{per_tick['sketch_query_kernel']:.4f} ms "
+         f"({seen['sketch_query_kernel']} records)")
 
 
 def _bound(bytes_moved: float, flops: float):
@@ -503,11 +523,22 @@ def main() -> int:
         _log(f"[insert] {label}: n={zi.shape[0]} d+2={wi.shape[1]} "
              f"p={wi.shape[0]} R={wi.shape[2]} {out_dtype} max|err|={err:g} "
              f"row mass {int(mass.min())}..{int(mass.max())} "
-             f"(2*sum(mask) = {2 * int(mi.sum())})")
+             f"(2*sum(int(mask)) = {2 * int(mi.to(torch.int64).sum())})")
         if not torch.equal(got, want):
             raise AssertionError(f"insert kernel differs from its plain "
                                  f"version at {label}")
         return got
+
+    def weighted_mask(lead, keep):
+        """A 0/1 mask (``keep`` valid, interleaved) whose every third
+        256-slot tile carries integer weights 0-3: weighted and binary tiles
+        meet in one launch."""
+        mi = (torch.rand(lead, generator=gen, device=dev) < keep).float()
+        for start in range(256, lead[-1], 768):
+            mi[..., start:start + 256] = torch.randint(
+                0, 4, mi[..., start:start + 256].shape, generator=gen,
+                device=dev).float()
+        return mi
 
     full_counts = check_insert("full", z, w, ones, torch.int32)
     for label, n, d, p, r, keep, out_dtype in (
@@ -515,14 +546,32 @@ def main() -> int:
         ("ragged", 77_777, 5, 1, 130, 0.7, torch.int32),
         ("ragged", 12_345, 13, 8, 77, 0.5, torch.int32),
         ("ragged", 5_001, 31, 5, 333, 1.0, torch.int32),
+        ("ragged d", 100_003, 1, 4, 2048, 0.6, torch.int32),
+        ("ragged d", 50_001, 16, 3, 1000, 0.5, torch.int32),
+        ("ragged d", 50_001, 17, 6, 513, 0.5, torch.int32),
+        ("ragged d", 33_333, 32, 7, 300, 0.8, torch.int32),
+        ("ragged d", 40_000, 10, 2, 2048, 0.5, torch.int32),
+        ("ragged d", 40_000, 10, 5, 2048, 0.5, torch.int32),
+        ("ragged n", 31, 10, 4, 2048, 1.0, torch.int32),
+        ("ragged n", 33, 10, 4, 2048, 0.7, torch.int32),
+        ("ragged n", 0, 10, 4, 2048, 1.0, torch.int32),
+        ("weighted", 100_003, 10, 4, 2048, 0.5, torch.int32),
+        ("weighted", 100_003, 16, 4, 333, 0.5, torch.int32),
+        ("weighted", 50_001, 17, 8, 100, 0.5, torch.int32),
+        ("weighted", 50_001, 10, 1, 100, 0.5, torch.int32),
         ("int16 saturating", 200_001, 4, 1, 50, 1.0, torch.int16),
         ("int16", 30_000, 10, 4, 2048, 0.8, torch.int16),
         ("int8 saturating", 50_001, 3, 2, 64, 1.0, torch.int8),
+        ("int16 saturating weighted", 100_003, 10, 1, 64, 0.5, torch.int16),
+        ("int8 saturating weighted", 50_001, 10, 4, 64, 0.5, torch.int8),
+        ("int8 saturating weighted", 50_001, 17, 8, 64, 0.5, torch.int8),
     ):
-        zi, _ = lsh.scale_to_unit_ball(
-            torch.randn(n, d, generator=gen, device=dev))
+        zi = torch.randn(n, d, generator=gen, device=dev)
+        if n:
+            zi, _ = lsh.scale_to_unit_ball(zi)
         wi = torch.randn(p, d + 2, r, generator=gen, device=dev)
-        mi = (torch.rand(n, generator=gen, device=dev) < keep).float()
+        mi = (weighted_mask((n,), keep) if "weighted" in label else
+              (torch.rand(n, generator=gen, device=dev) < keep).float())
         got = check_insert(label, zi.contiguous(), wi, mi, out_dtype)
         if "saturating" in label and int(got.max()) != torch.iinfo(out_dtype).max:
             raise AssertionError(f"{label} did not saturate")
@@ -707,6 +756,32 @@ def main() -> int:
                 and bank.n.tolist() == sizes):
             raise AssertionError(f"{name}: the bank differs from its plain "
                                  f"version or from the lone kernel")
+
+    # A gateway-shaped bank (ingest slots about half masked, interleaved),
+    # then one whose masks carry integer weights in some tiles only.
+    for label, keep, weighted in (("interleaved", 0.5, False),
+                                  ("weighted", 0.5, True)):
+        zg = torch.stack([lsh.scale_to_unit_ball(torch.randn(
+            GW_INGEST_SLOTS, D_FEATURES + 1, generator=gen, device=dev))[0]
+            for _ in range(TENANTS)]).contiguous()
+        mg = (weighted_mask((TENANTS, GW_INGEST_SLOTS), keep) if weighted
+              else (torch.rand(TENANTS, GW_INGEST_SLOTS, generator=gen,
+                               device=dev) < keep).float())
+        got = insert_kernel.paired_hash_histogram_banked(zg, w, mg)
+        want = ref.paired_hash_histogram_banked(zg, w, mg)
+        torch.cuda.synchronize()
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        errs["paired_hash_histogram_banked"] = max(
+            errs["paired_hash_histogram_banked"], err)
+        slices_equal = all(torch.equal(got[i], insert_kernel.paired_hash_histogram(
+            zg[i], w, mg[i])) for i in range(TENANTS))
+        _log(f"[bank] {label} paired bank: S={TENANTS} slots="
+             f"{GW_INGEST_SLOTS} valid={int((mg != 0).sum())} "
+             f"sum(int(mask))={int(mg.to(torch.int64).sum())}; max|err| vs "
+             f"plain={err:g}; slices equal the lone kernel: {slices_equal}")
+        if not (torch.equal(got, want) and slices_equal):
+            raise AssertionError(f"the {label} paired bank differs from its "
+                                 f"plain version or from the lone kernel")
 
     # -- 8. banked query against its plain version -------------------------------
     bank = banks[True]
@@ -1186,10 +1261,23 @@ def main() -> int:
                    flops=2.0 * SRP_ROWS * d_aug * rows * p)),
     }
     times = {}
+    spread = ("paired_hash_histogram", "paired_hash_histogram_banked")
     for name, (kern, plain, reps, plain_reps, symbol, bound) in cases.items():
         wall = _median_ms(kern, reps, torch)
         plain_wall = _median_ms(plain, plain_reps, torch)
-        dev_ms = _device_ms(kern, reps, torch, symbol)
+        # The paired inserts: three profiler runs, so that an outlier shows
+        # as spread; their median is the kernel's time. Every record is
+        # printed, so that a dropped one shows as well.
+        records = []
+        runs = [_device_ms(kern, reps, torch, symbol, records)
+                for _ in range(3 if name in spread else 1)]
+        dev_ms = (None if None in runs else statistics.median(runs))
+        if len(runs) > 1 and dev_ms is not None:
+            _log(f"[time] {name}: device ms per launch over {len(runs)} "
+                 f"profiler runs of {reps}: min {min(runs):.4f}, median "
+                 f"{dev_ms:.4f}, max {max(runs):.4f}; {len(records)} kernel "
+                 f"records (ms): "
+                 f"{', '.join(f'{us / 1e3:.3f}' for us in records)}")
         plain_dev_ms = _device_ms(plain, plain_reps, torch)
         times[name] = (dev_ms if dev_ms is not None else wall,
                        plain_dev_ms if plain_dev_ms is not None else plain_wall,

@@ -20,10 +20,11 @@ inline int insert_threads(int p) { return std::min(128, 8192 >> p); }
 
 // The grid of an insert over `tenants` streams of n points each:
 // x = R-tiles of `threads` rows, z = the tenant, y = n-chunks of whole
-// point tiles, enough of them to fill the card. Writes the grid and the
-// points per chunk.
+// tiles of `tile` points, enough of them to fill the card. Writes the grid
+// and the points per chunk.
 inline cudaError_t insert_grid(int n, int rows, int threads, int tenants,
-                               dim3* grid, int* chunk) {
+                               dim3* grid, int* chunk,
+                               int tile = kTilePoints) {
   if (tenants < 1 || tenants > 65535) return cudaErrorInvalidValue;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -31,11 +32,11 @@ inline cudaError_t insert_grid(int n, int rows, int threads, int tenants,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const long long gx = (rows + threads - 1) / threads;
-  const long long tiles = ((long long)n + kTilePoints - 1) / kTilePoints;
+  const long long tiles = ((long long)n + tile - 1) / tile;
   long long gy = ((long long)sms * kBlocksPerSm + gx * tenants - 1) /
                  (gx * tenants);
   gy = std::max(1LL, std::min(gy, std::min(tiles, 65535LL)));
-  const long long per = (tiles + gy - 1) / gy * kTilePoints;
+  const long long per = (tiles + gy - 1) / gy * tile;
   gy = ((long long)n + per - 1) / per;
   *grid = dim3((unsigned)gx, (unsigned)gy, (unsigned)tenants);
   *chunk = (int)per;

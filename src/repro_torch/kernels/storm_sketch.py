@@ -108,7 +108,8 @@ def paired_hash_histogram(z: Tensor, w: Tensor, mask: Tensor,
     Args:
       z: ``(n, d)`` pre-scaled points (``|z| <= 1``; NOT augmented).
       w: ``(p, d + 2, R)`` hyperplane normals of the augmented space.
-      mask: ``(n,)`` validity mask in {0, 1}.
+      mask: ``(n,)`` mask; point ``i`` adds ``int(mask[i])`` (1 for a
+        valid slot, 0 for padding; other integers weight the point).
       out_dtype: int32, or int16/int8 saturated once at the end.
 
     One launch takes the whole stream: counts only grow, so a single
@@ -118,7 +119,7 @@ def paired_hash_histogram(z: Tensor, w: Tensor, mask: Tensor,
         return ref.paired_hash_histogram(z, w, mask, out_dtype)
     out = _launch("paired_hash_histogram", z, w, mask, out_dtype,
                   paired=True, banked=False)
-    paired_hash_histogram.launches += 1
+    paired_hash_histogram.launches += z.shape[-2] > 0  # empty: no launch
     return out
 
 
@@ -137,7 +138,7 @@ def hash_histogram(x: Tensor, w: Tensor, mask: Tensor,
         return ref.hash_histogram(x, w, mask, out_dtype)
     out = _launch("hash_histogram", x, w, mask, out_dtype, paired=False,
                   banked=False)
-    hash_histogram.launches += 1
+    hash_histogram.launches += x.shape[-2] > 0  # empty: no launch
     return out
 
 
@@ -153,7 +154,7 @@ def paired_hash_histogram_banked(z: Tensor, w: Tensor, mask: Tensor,
         return ref.paired_hash_histogram_banked(z, w, mask, out_dtype)
     out = _launch("paired_hash_histogram", z, w, mask, out_dtype,
                   paired=True, banked=True)
-    paired_hash_histogram_banked.launches += 1
+    paired_hash_histogram_banked.launches += z.shape[-2] > 0  # empty: no launch
     return out
 
 
@@ -169,7 +170,7 @@ def hash_histogram_banked(x: Tensor, w: Tensor, mask: Tensor,
         return ref.hash_histogram_banked(x, w, mask, out_dtype)
     out = _launch("hash_histogram", x, w, mask, out_dtype, paired=False,
                   banked=True)
-    hash_histogram_banked.launches += 1
+    hash_histogram_banked.launches += x.shape[-2] > 0  # empty: no launch
     return out
 
 

@@ -39,22 +39,26 @@ def _port_dfo(cfg):
     return dfo.DFOConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
 
 
-def _stack(seed, s, n, d, augment):
+def _stack(seed, s, n, d, augment, weighted=False):
     z = np.stack([unit_ball_rows(seed + i, n, d) for i in range(s)])
     if augment:
         z = np.asarray(jlsh.augment_data(jnp.asarray(z)))
     mask = np.ones((s, n), np.float32)
     mask[-1, n - n // 3:] = 0  # a ragged last tenant
+    if weighted:  # integer weights in {0, 1, 2, 3} for one tenant's middle
+        mask[1, n // 4:n // 2] = np.random.default_rng(seed).integers(
+            0, 4, size=n // 2 - n // 4)
     return z, mask
 
 
 # -- the banked kernels' plain versions against the JAX kernels ----------------
 
+@pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("out", ["int32", "int8"])
 @pytest.mark.parametrize("paired", [True, False])
-def test_banked_inserts_equal_jax(paired, out):
+def test_banked_inserts_equal_jax(paired, out, weighted):
     s, n, d, p, r = 3, 70, 5, 4, 24
-    z, mask = _stack(10, s, n, d, augment=not paired)
+    z, mask = _stack(10, s, n, d, augment=not paired, weighted=weighted)
     d_w = d + 2
     w = np.random.default_rng(10).normal(size=(p, d_w, r)).astype(np.float32)
     tdt, jdt = getattr(torch, out), jnp.dtype(out)

@@ -30,11 +30,16 @@ _DTYPES = {"int32": (torch.int32, jnp.int32), "int16": (torch.int16, jnp.int16),
 
 
 def _insert_inputs(seed, n, d, p, r, masked):
+    """``masked``: False (all ones), True (0/1) or "weighted": 0/1 with
+    integer weights in {0, 1, 2, 3} on the middle third only, the mask
+    contract of the inserts (point i adds ``int(mask[i])``)."""
     rng = np.random.default_rng(seed)
     z = unit_ball_rows(seed, n, d)
     w = rng.normal(size=(p, d + 2, r)).astype(np.float32)
     mask = (rng.uniform(size=n) < 0.7 if masked else np.ones(n)).astype(
         np.float32)
+    if masked == "weighted":
+        mask[n // 3:2 * n // 3] = rng.integers(0, 4, size=2 * n // 3 - n // 3)
     return z, w, mask
 
 
@@ -43,6 +48,8 @@ def _insert_inputs(seed, n, d, p, r, masked):
     (0, 37, 5, 1, 19, True),
     (1, 130, 6, 4, 45, False),
     (2, 61, 3, 8, 13, True),
+    (8, 97, 10, 4, 21, "weighted"),
+    (9, 70, 4, 5, 11, "weighted"),
 ])
 def test_paired_hash_histogram_equals_jax(seed, n, d, p, r, masked, out):
     z, w, mask = _insert_inputs(seed, n, d, p, r, masked)
@@ -59,6 +66,11 @@ def test_paired_hash_histogram_equals_jax(seed, n, d, p, r, masked, out):
     if out == "int32":
         np.testing.assert_array_equal(got.sum(1).numpy(),
                                       np.full(r, 2 * int(mask.sum())))
+    if masked == "weighted":  # the weights add, not just the valid slots
+        assert int(mask.max()) > 1
+        binary = ref.paired_hash_histogram(t(z), t(w), t(np.minimum(mask, 1)),
+                                           tdt)
+        assert not torch.equal(got, binary)
 
 
 def test_paired_hash_histogram_saturates_int8():

@@ -24,7 +24,8 @@ from repro_torch.kernels import storm_sketch as histogram_kernel
 def _insert_inputs(seed, n, d, p, r, masked, device):
     rng = np.random.default_rng(seed)
     z = rng.normal(size=(n, d)).astype(np.float32)
-    z /= np.quantile(np.linalg.norm(z, axis=1), 0.9) * 1.05
+    if n:
+        z /= np.quantile(np.linalg.norm(z, axis=1), 0.9) * 1.05
     z /= np.maximum(np.linalg.norm(z, axis=1, keepdims=True), 1.0)
     w = rng.normal(size=(p, d + 2, r)).astype(np.float32)
     mask = (rng.uniform(size=n) < 0.7 if masked else np.ones(n)).astype(
@@ -49,6 +50,108 @@ def test_insert_kernel_equals_plain_version(cuda, seed, n, d, p, r, masked,
                                             out):
     z, w, mask = _insert_inputs(seed, n, d, p, r, masked, cuda)
     got = histogram_kernel.paired_hash_histogram(z, w, mask, out)
+    assert torch.equal(got, ref.paired_hash_histogram(z, w, mask, out))
+
+
+def _weighted_mask(seed, lead, device):
+    """A 0/1 mask (about half valid, masked slots interleaved) whose every
+    third 256-slot tile carries integer weights in {0, 1, 2, 3}: weighted
+    and binary tiles meet in one launch."""
+    rng = np.random.default_rng(seed)
+    mask = (rng.uniform(size=lead) < 0.5).astype(np.float32)
+    n = lead[-1]
+    for start in range(256, n, 768):
+        stop = min(start + 256, n)
+        mask[..., start:stop] = rng.integers(0, 4, size=lead[:-1]
+                                             + (stop - start,))
+    return torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4, 5, 8])
+@pytest.mark.parametrize("d", [1, 10, 16, 17, 32])
+def test_paired_insert_widths_and_planes_equal_plain_version(cuda, d, p):
+    # The exact-width body (d = 10, p <= 4), the generic bodies (DMAX 16 and
+    # 32), register counters and the shared histogram; lone and banked.
+    z, w, mask = _insert_inputs(d * 10 + p, 3001, d, p, 300, True, cuda)
+    got = histogram_kernel.paired_hash_histogram(z, w, mask)
+    assert torch.equal(got, ref.paired_hash_histogram(z, w, mask))
+    zb = torch.stack([z, z.flip(0)])
+    mb = torch.stack([mask, 1 - mask])
+    banked = histogram_kernel.paired_hash_histogram_banked(zb, w, mb)
+    assert torch.equal(banked, ref.paired_hash_histogram_banked(zb, w, mb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p", [(10, 4), (17, 8), (3, 2)])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 100_003])
+def test_paired_insert_ragged_streams_equal_plain_version(cuda, n, d, p):
+    z, w, mask = _insert_inputs(n + d, n, d, p, 257, True, cuda)
+    before = histogram_kernel.paired_hash_histogram.launches
+    got = histogram_kernel.paired_hash_histogram(z, w, mask)
+    assert histogram_kernel.paired_hash_histogram.launches == before + (n > 0)
+    assert torch.equal(got, ref.paired_hash_histogram(z, w, mask))
+    assert torch.equal(got.to(torch.int64).sum(1),
+                       torch.full((257,), 2 * int(mask.sum()),
+                                  dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 3, 5])
+def test_paired_insert_unaligned_views_equal_plain_version(cuda, offset):
+    # A view that starts `offset` rows in: its points are not 16-byte
+    # aligned, so the staging copies them 4 bytes at a time.
+    z, w, mask = _insert_inputs(offset, 10_001, 10, 4, 512, True, cuda)
+    zv, mv = z[offset:], mask[offset:]
+    assert zv.is_contiguous() and zv.data_ptr() % 16
+    got = histogram_kernel.paired_hash_histogram(zv, w, mv)
+    assert torch.equal(got, ref.paired_hash_histogram(zv, w, mv))
+
+
+@pytest.mark.gpu
+def test_gateway_shaped_bank_equals_plain_and_lone(cuda):
+    # 16 tenants x 4096 slots, about half masked, interleaved.
+    s, n, d, p, r = 16, 4096, 10, 4, 2048
+    rng = np.random.default_rng(11)
+    z = torch.from_numpy((0.3 * rng.normal(size=(s, n, d))).astype(
+        np.float32)).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(p, d + 2, r)).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy((rng.uniform(size=(s, n)) < 0.5).astype(
+        np.float32)).to(cuda)
+    got = histogram_kernel.paired_hash_histogram_banked(z, w, mask)
+    assert torch.equal(got, ref.paired_hash_histogram_banked(z, w, mask))
+    for i in (0, 7, 15):
+        assert torch.equal(got[i], histogram_kernel.paired_hash_histogram(
+            z[i].contiguous(), w, mask[i].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p", [(10, 4), (16, 4), (17, 8), (10, 5)])
+def test_paired_insert_integer_weighted_mask_equals_plain_version(cuda, d, p):
+    z, w, _ = _insert_inputs(d + p, 5000, d, p, 200, False, cuda)
+    mask = _weighted_mask(d + p, (5000,), cuda)
+    assert int(mask.max()) == 3
+    got = histogram_kernel.paired_hash_histogram(z, w, mask)
+    assert torch.equal(got, ref.paired_hash_histogram(z, w, mask))
+    zb = torch.stack([z, z, z])
+    mb = _weighted_mask(d + p + 1, (3, 5000), cuda)
+    mb[0] = mask
+    banked = histogram_kernel.paired_hash_histogram_banked(zb, w, mb)
+    assert torch.equal(banked, ref.paired_hash_histogram_banked(zb, w, mb))
+    assert torch.equal(banked[0], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p,out", [
+    (10, 1, torch.int16), (3, 2, torch.int16), (10, 4, torch.int8),
+    (10, 5, torch.int8), (17, 8, torch.int8),
+])
+def test_paired_insert_narrow_outputs_saturate(cuda, d, p, out):
+    z, w, _ = _insert_inputs(3 * d + p, 100_003, d, p, 50, False, cuda)
+    mask = _weighted_mask(p, (100_003,), cuda)
+    got = histogram_kernel.paired_hash_histogram(z, w, mask, out)
+    assert int(got.max()) == torch.iinfo(out).max
     assert torch.equal(got, ref.paired_hash_histogram(z, w, mask, out))
 
 
