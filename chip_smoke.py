@@ -24,15 +24,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
 6. single-sided insert: ``hash_histogram`` against its plain version, bit
    for bit, at the classification path's full shape (n = 2^22 rows of
    d = 9 features, augmented to 11 columns, R = 1024, p = 2), at ragged
-   shapes (p in {1, 2, 4, 8}, partial masks) and with int16/int8 outputs
-   that saturate.
+   shapes (d in {1, 3, 4, 5, 7, 11, 13, 15, 16, 17, 31, 32}, p from 1 to 8,
+   n in {0, 31, 33} and n % 32 != 0, partial masks, one launch per
+   non-empty stream), with integer-weighted masks (values 0-3 in some tiles
+   only), on rows that are not augmented (exact +0.0 and -0.0 entries,
+   all-zero rows), on views that are not 16-byte aligned, and with
+   int16/int8 outputs that saturate.
 7. banked inserts: ``sketch_dataset_many(engine="kernel")``, paired
    (R = 2048, p = 4) and single-sided (R = 1024, p = 2), over 16 tenants of
    2^18 rows (the last 1000 short), with the launch counts of that build;
    each slice against the lone kernel on that tenant and the whole bank
-   against the plain banked version, bit for bit; then a gateway-shaped
-   paired bank (16 tenants x 4096 slots, about half masked, interleaved)
-   and an integer-weighted one, the same way.
+   against the plain banked version, bit for bit; then, paired and
+   single-sided, a gateway-shaped bank (16 tenants x 4096 slots, about half
+   masked, interleaved) and an integer-weighted one, the same way.
 8. banked query: ``sketch_query_banked`` against its plain version, bit for
    bit, on the 16-tenant bank for m in {272, 16, 32, 3168, 4096}, and on its
    int16 and int8 copies.
@@ -49,8 +53,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
     scan engine, on the same draws.
 11. timings (run last): device time per launch of each of the seven
     kernels and its plain version at the shapes above, beside the least time
-    the card could take (the paired inserts, kernels 1 and 4, over three
-    profiler runs: min, median and max, and every kernel record); where the
+    the card could take (the four inserts, kernels 1, 3, 4 and 5, over three
+    profiler runs: min, median and max, and every kernel record); kernel 3
+    at the kmeans shape (d = 11, p = 4) on its own line; where the
     time of the three fits goes; the gateway's ticks/s, points/s and rows/s,
     synchronous and pipelined, its tick latency (p50, p99) and, under the
     profiler, the device's busy share and the insert's and query's device
@@ -675,21 +680,73 @@ def main() -> int:
                            device=dev)
     wc = ops.from_lsh_params(cparams)  # (p, d + 2, R)
     check_single("full", xa, wc, ones, torch.int32)
+
+    def generic_rows(n, d):
+        """Rows that are not augmented: about a tenth of the entries +0.0
+        and a tenth -0.0, every 97th row all zeros (+0.0 or -0.0), so that a
+        kernel which skipped a column or assumed the augmented layout would
+        differ."""
+        xi = torch.randn(n, d, generator=gen, device=dev)
+        u = torch.rand(n, d, generator=gen, device=dev)
+        xi = torch.where(u < 0.1, torch.zeros_like(xi), xi)
+        xi = torch.where((u >= 0.1) & (u < 0.2), -torch.zeros_like(xi), xi)
+        xi[::97] = 0.0
+        xi[48::194] = -0.0
+        return xi
+
+    def unaligned(xi, offset):
+        """A contiguous copy of ``xi`` that starts ``offset`` floats into
+        its buffer, so that it is not 16-byte aligned."""
+        buf = torch.empty(xi.numel() + offset, device=dev)
+        view = buf[offset:].view(xi.shape)
+        view.copy_(xi)
+        return view
+
     for label, n, d, p, r, keep, out_dtype in (
         ("ragged", 100_003, 11, 1, 1000, 0.9, torch.int32),
         ("ragged", 77_777, 7, 2, 130, 0.7, torch.int32),
         ("ragged", 12_345, 15, 4, 77, 0.5, torch.int32),
         ("ragged", 5_001, 32, 8, 333, 1.0, torch.int32),
+        ("ragged d", 100_003, 11, 4, 1024, 0.6, torch.int32),
+        ("ragged d", 50_001, 11, 5, 1024, 0.5, torch.int32),
+        ("ragged d", 50_001, 16, 3, 1000, 0.5, torch.int32),
+        ("ragged d", 50_001, 17, 6, 513, 0.5, torch.int32),
+        ("ragged d", 33_333, 1, 2, 300, 0.8, torch.int32),
+        ("ragged n", 31, 11, 2, 1024, 1.0, torch.int32),
+        ("ragged n", 33, 11, 2, 1024, 0.7, torch.int32),
+        ("ragged n", 0, 11, 2, 1024, 1.0, torch.int32),
+        ("weighted", 100_003, 11, 2, 1024, 0.5, torch.int32),
+        ("weighted", 100_003, 11, 4, 1024, 0.5, torch.int32),
+        ("weighted", 50_001, 16, 4, 333, 0.5, torch.int32),
+        ("weighted", 50_001, 17, 8, 100, 0.5, torch.int32),
+        ("generic", 100_003, 11, 2, 1024, 0.9, torch.int32),
+        ("generic", 100_003, 11, 4, 1024, 0.9, torch.int32),
+        ("generic", 50_001, 5, 8, 200, 0.9, torch.int32),
+        ("generic weighted", 50_001, 31, 3, 300, 0.5, torch.int32),
+        ("unaligned", 100_003, 11, 2, 1024, 0.9, torch.int32),
+        ("unaligned generic", 50_001, 13, 4, 500, 0.9, torch.int32),
         ("int16 saturating", 200_001, 4, 1, 50, 1.0, torch.int16),
         ("int16", 30_000, 11, 2, 1024, 0.8, torch.int16),
         ("int8 saturating", 50_001, 3, 2, 64, 1.0, torch.int8),
+        ("int8 saturating weighted", 50_001, 11, 2, 64, 0.5, torch.int8),
     ):
-        zi, _ = lsh.scale_to_unit_ball(
-            torch.randn(n, d - 2, generator=gen, device=dev))
-        xi = lsh.augment_data(zi).contiguous()
+        if "generic" in label or d < 3:
+            xi = generic_rows(n, d)
+        else:
+            zi = torch.randn(n, d - 2, generator=gen, device=dev)
+            if n:
+                zi = lsh.scale_to_unit_ball(zi)[0]
+            xi = lsh.augment_data(zi).contiguous()
+        if "unaligned" in label:
+            xi = unaligned(xi, 1)
+            assert xi.is_contiguous() and xi.data_ptr() % 16
         wi = torch.randn(p, d, r, generator=gen, device=dev)
-        mi = (torch.rand(n, generator=gen, device=dev) < keep).float()
+        mi = (weighted_mask((n,), keep) if "weighted" in label else
+              (torch.rand(n, generator=gen, device=dev) < keep).float())
+        before = insert_kernel.hash_histogram.launches
         got = check_single(label, xi, wi, mi, out_dtype)
+        if insert_kernel.hash_histogram.launches != before + (n > 0):
+            raise AssertionError(f"{label}: expected {int(n > 0)} launch")
         if "saturating" in label and int(got.max()) != torch.iinfo(out_dtype).max:
             raise AssertionError(f"{label} did not saturate")
 
@@ -758,29 +815,45 @@ def main() -> int:
                                  f"version or from the lone kernel")
 
     # A gateway-shaped bank (ingest slots about half masked, interleaved),
-    # then one whose masks carry integer weights in some tiles only.
-    for label, keep, weighted in (("interleaved", 0.5, False),
-                                  ("weighted", 0.5, True)):
+    # then one whose masks carry integer weights in some tiles only; paired
+    # (the regression family's rows and hash) and single-sided (augmented
+    # margin-shaped rows under the classification hash).
+    for paired, label in itertools.product((True, False),
+                                           ("interleaved", "weighted")):
+        if paired:
+            name, wg = "paired_hash_histogram_banked", w
+            banked = insert_kernel.paired_hash_histogram_banked
+            lone = insert_kernel.paired_hash_histogram
+            plain = ref.paired_hash_histogram_banked
+            width = D_FEATURES + 1
+        else:
+            name, wg = "hash_histogram_banked", wc
+            banked = insert_kernel.hash_histogram_banked
+            lone = insert_kernel.hash_histogram
+            plain = ref.hash_histogram_banked
+            width = D_FEATURES
         zg = torch.stack([lsh.scale_to_unit_ball(torch.randn(
-            GW_INGEST_SLOTS, D_FEATURES + 1, generator=gen, device=dev))[0]
-            for _ in range(TENANTS)]).contiguous()
-        mg = (weighted_mask((TENANTS, GW_INGEST_SLOTS), keep) if weighted
-              else (torch.rand(TENANTS, GW_INGEST_SLOTS, generator=gen,
-                               device=dev) < keep).float())
-        got = insert_kernel.paired_hash_histogram_banked(zg, w, mg)
-        want = ref.paired_hash_histogram_banked(zg, w, mg)
+            GW_INGEST_SLOTS, width, generator=gen, device=dev))[0]
+            for _ in range(TENANTS)])
+        zg = (zg if paired else lsh.augment_data(zg)).contiguous()
+        mg = (weighted_mask((TENANTS, GW_INGEST_SLOTS), 0.5)
+              if label == "weighted" else
+              (torch.rand(TENANTS, GW_INGEST_SLOTS, generator=gen,
+                          device=dev) < 0.5).float())
+        got = banked(zg, wg, mg)
+        want = plain(zg, wg, mg)
         torch.cuda.synchronize()
         err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        errs["paired_hash_histogram_banked"] = max(
-            errs["paired_hash_histogram_banked"], err)
-        slices_equal = all(torch.equal(got[i], insert_kernel.paired_hash_histogram(
-            zg[i], w, mg[i])) for i in range(TENANTS))
-        _log(f"[bank] {label} paired bank: S={TENANTS} slots="
+        errs[name] = max(errs[name], err)
+        slices_equal = all(torch.equal(got[i], lone(zg[i], wg, mg[i]))
+                           for i in range(TENANTS))
+        kind = "paired" if paired else "single-sided"
+        _log(f"[bank] {label} {kind} bank: S={TENANTS} slots="
              f"{GW_INGEST_SLOTS} valid={int((mg != 0).sum())} "
              f"sum(int(mask))={int(mg.to(torch.int64).sum())}; max|err| vs "
              f"plain={err:g}; slices equal the lone kernel: {slices_equal}")
         if not (torch.equal(got, want) and slices_equal):
-            raise AssertionError(f"the {label} paired bank differs from its "
+            raise AssertionError(f"the {label} {kind} bank differs from its "
                                  f"plain version or from the lone kernel")
 
     # -- 8. banked query against its plain version -------------------------------
@@ -1261,23 +1334,31 @@ def main() -> int:
                    flops=2.0 * SRP_ROWS * d_aug * rows * p)),
     }
     times = {}
-    spread = ("paired_hash_histogram", "paired_hash_histogram_banked")
+    spread = ("paired_hash_histogram", "paired_hash_histogram_banked",
+              "hash_histogram", "hash_histogram_banked")
+
+    def spread_ms(name, kern, reps, symbol):
+        """The inserts: three profiler runs, so that an outlier shows as
+        spread; their median is the kernel's time. Every record is printed,
+        so that a dropped one shows as well."""
+        records = []
+        runs = [_device_ms(kern, reps, torch, symbol, records)
+                for _ in range(3)]
+        if None in runs:
+            return None
+        dev_ms = statistics.median(runs)
+        _log(f"[time] {name}: device ms per launch over {len(runs)} "
+             f"profiler runs of {reps}: min {min(runs):.4f}, median "
+             f"{dev_ms:.4f}, max {max(runs):.4f}; {len(records)} kernel "
+             f"records (ms): "
+             f"{', '.join(f'{us / 1e3:.3f}' for us in records)}")
+        return dev_ms
+
     for name, (kern, plain, reps, plain_reps, symbol, bound) in cases.items():
         wall = _median_ms(kern, reps, torch)
         plain_wall = _median_ms(plain, plain_reps, torch)
-        # The paired inserts: three profiler runs, so that an outlier shows
-        # as spread; their median is the kernel's time. Every record is
-        # printed, so that a dropped one shows as well.
-        records = []
-        runs = [_device_ms(kern, reps, torch, symbol, records)
-                for _ in range(3 if name in spread else 1)]
-        dev_ms = (None if None in runs else statistics.median(runs))
-        if len(runs) > 1 and dev_ms is not None:
-            _log(f"[time] {name}: device ms per launch over {len(runs)} "
-                 f"profiler runs of {reps}: min {min(runs):.4f}, median "
-                 f"{dev_ms:.4f}, max {max(runs):.4f}; {len(records)} kernel "
-                 f"records (ms): "
-                 f"{', '.join(f'{us / 1e3:.3f}' for us in records)}")
+        dev_ms = (spread_ms(name, kern, reps, symbol) if name in spread
+                  else _device_ms(kern, reps, torch, symbol))
         plain_dev_ms = _device_ms(plain, plain_reps, torch)
         times[name] = (dev_ms if dev_ms is not None else wall,
                        plain_dev_ms if plain_dev_ms is not None else plain_wall,
@@ -1285,6 +1366,28 @@ def main() -> int:
         _log(f"[time] {name}: device {dev_ms} ms per launch, {wall:.4f} ms "
              f"per call by CUDA events; plain version: device "
              f"{plain_dev_ms} ms, {plain_wall:.4f} ms per call")
+
+    # Kernel 3 at the kmeans shape (d = 11, p = 4, R = 1024) on its own line;
+    # it stays out of the kernel list, which has one entry per kernel.
+    xk = lsh.augment_data(zk).contiguous()
+    wk = torch.randn(KMEANS_PLANES, D_FEATURES + 2, CLS_ROWS, generator=gen,
+                     device=dev)
+
+    def kmeans_insert():
+        return insert_kernel.hash_histogram(xk, wk, ones)
+
+    kmeans_wall = _median_ms(kmeans_insert, 5, torch)
+    kmeans_ms = spread_ms("hash_histogram at the kmeans shape",
+                          kmeans_insert, 5, "hist_kernel")
+    kmeans_bound, kmeans_by = _bound(
+        bytes_moved=4 * (xk.numel() + ones.numel() + wk.numel()
+                         + CLS_ROWS * (1 << KMEANS_PLANES)),
+        flops=2.0 * N_ROWS * xk.shape[1] * CLS_ROWS * KMEANS_PLANES)
+    _log(f"[time] hash_histogram at the kmeans shape (n={N_ROWS} d="
+         f"{xk.shape[1]} p={KMEANS_PLANES} R={CLS_ROWS}): device "
+         f"{kmeans_ms} ms per launch, {kmeans_wall:.4f} ms per call by "
+         f"CUDA events; bound {kmeans_bound:.4f} ms by "
+         f"{kmeans_by}")
 
     # Where each fit's time goes: device busy time under the profiler.
     _fit_profile("fit", lambda: run_fit("auto"), torch,

@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Time the paired insert (lone and banked) and lone query kernels of one
-or more checkouts of the PyTorch/CUDA port, each in a fresh process, on one
-card.
+"""Time the insert kernels, the lone query and the SRP hash of one or more
+checkouts of the PyTorch/CUDA port, each in a fresh process, on one card.
 
     python3 scripts/ab_insert_kernel.py TREE [TREE ...]
 
 Each TREE is the root of a checkout (its ``src/repro_torch`` is imported and
 its kernels are built). For every TREE in the order given, a child process
-builds that checkout's kernels and times, at the regression path's full
-shapes, ``paired_hash_histogram`` (n = 2^22 rows, d = 10, R = 2048, p = 4),
-``paired_hash_histogram_banked`` (16 tenants of 2^18 rows, the last 1000
-rows short, under the same hash family) and ``sketch_query`` (m = 17, one
-DFO step) on the same seeded inputs: device time per launch from
-torch.profiler (the mean over the kernel records it kept, with their count:
-the profiler has been seen to drop a record of these kernels) and the
-median CUDA-event time per call. While a queue of lone inserts runs, it
-reads the SM clock three times with nvidia-smi (``insert_sm_clock_mhz``;
-``clock_sampled_busy`` says the card was still running them after the last
-reading). It prints one JSON line per run. To compare two commits on one card, give
-them in alternating order (A B B A). Needs a CUDA card.
+builds that checkout's kernels and times, on the same seeded inputs:
+
+* kernel 1, ``paired_hash_histogram`` (n = 2^22 rows, d = 10, R = 2048,
+  p = 4: the regression path), and kernel 4, its banked form (16 tenants of
+  2^18 rows, the last 1000 short, under the same hash family);
+* kernel 2, ``sketch_query`` (m = 17, one DFO step);
+* kernel 3, ``hash_histogram`` at the classification path's shape (n = 2^22
+  augmented rows of d = 11, R = 1024, p = 2) and at the kmeans shape
+  (p = 4), and kernel 5, its banked form (16 tenants of 2^18 rows, the last
+  1000 short, p = 2);
+* kernel 7, ``srp_hash`` (n = 2^18, d = 12, R = 2048, p = 4).
+
+For each: device time per launch from torch.profiler (the mean over the
+kernel records it kept, with their count: the profiler has been seen to drop
+a record of these kernels) and the median CUDA-event time per call. While
+a queue of each lone insert (kernels 1 and 3) runs, it reads the SM clock
+three times with nvidia-smi (``*_sm_clock_mhz``; ``*_clock_sampled_busy``
+says the card was still running them after the last reading). Each
+output's sum (``*_sum``) and its sum weighted by the last axis's index
+(``*_bucket_sum``) show that both trees counted the same cells. It prints
+one JSON line per run. To compare two commits on one card, give them
+in alternating order (A B B A). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -31,6 +40,15 @@ from pathlib import Path
 
 N_ROWS, D, ROWS, PLANES, M = 1 << 22, 10, 2048, 4, 17
 TENANTS, TENANT_ROWS, TENANT_SHORT = 16, 1 << 18, 1000
+# The single-sided family: d = 9 features augmented to 11 columns.
+S_D, S_ROWS, S_PLANES, KMEANS_PLANES = 11, 1024, 2, 4
+SRP_ROWS = 1 << 18
+
+
+def _named(symbol: str, name: str) -> bool:
+    """Whether a profiler kernel name is the device function ``symbol``
+    (demangled ``ns::symbol<...>`` or mangled ``<len>symbol``)."""
+    return f"::{symbol}" in name or f"{len(symbol)}{symbol}" in name
 
 
 def _child(tree: Path) -> dict:
@@ -42,25 +60,34 @@ def _child(tree: Path) -> dict:
     from repro_torch.core import lsh
     from repro_torch.kernels import _build
     from repro_torch.kernels import sketch_query as query_kernel
+    from repro_torch.kernels import srp_hash as hash_kernel
     from repro_torch.kernels import storm_sketch as insert_kernel
 
     _build.build_all()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    z, _ = lsh.scale_to_unit_ball(
-        torch.randn(N_ROWS, D, generator=gen, device=dev))
-    z = z.contiguous()
+
+    def unit_ball(n, d):
+        return lsh.scale_to_unit_ball(
+            torch.randn(n, d, generator=gen, device=dev))[0].contiguous()
+
+    z = unit_ball(N_ROWS, D)
     w = torch.randn(PLANES, D + 2, ROWS, generator=gen, device=dev)
     mask = torch.ones(N_ROWS, device=dev)
     counts = insert_kernel.paired_hash_histogram(z, w, mask)
-    zb, _ = lsh.scale_to_unit_ball(
-        torch.randn(TENANTS * TENANT_ROWS, D, generator=gen, device=dev))
-    zb = zb.reshape(TENANTS, TENANT_ROWS, D).contiguous()
+    zb = unit_ball(TENANTS * TENANT_ROWS, D).reshape(TENANTS, TENANT_ROWS, D)
     mb = torch.ones(TENANTS, TENANT_ROWS, device=dev)
     mb[-1, TENANT_ROWS - TENANT_SHORT:] = 0
     bank = insert_kernel.paired_hash_histogram_banked(zb, w, mb)
     q = lsh.augment_query(lsh.normalize_query(
         torch.randn(M, D, generator=gen, device=dev))).contiguous()
+    x = lsh.augment_data(unit_ball(N_ROWS, S_D - 2)).contiguous()
+    ws = torch.randn(S_PLANES, S_D, S_ROWS, generator=gen, device=dev)
+    wk = torch.randn(KMEANS_PLANES, S_D, S_ROWS, generator=gen, device=dev)
+    xb = lsh.augment_data(unit_ball(TENANTS * TENANT_ROWS, S_D - 2)).reshape(
+        TENANTS, TENANT_ROWS, S_D).contiguous()
+    xh = lsh.augment_query(lsh.normalize_query(
+        torch.randn(SRP_ROWS, D, generator=gen, device=dev))).contiguous()
 
     def timed(fn, reps, symbol):
         """(median event ms per call, device ms per record, records)."""
@@ -80,7 +107,7 @@ def _child(tree: Path) -> dict:
             torch.cuda.synchronize()
         records = [e.time_range.elapsed_us() for e in prof.events()
                    if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and symbol in e.name]
+                   and _named(symbol, e.name)]
         dev_ms = sum(records) / len(records) / 1e3 if records else None
         return statistics.median(times), dev_ms, len(records)
 
@@ -101,28 +128,47 @@ def _child(tree: Path) -> dict:
     def insert():
         return insert_kernel.paired_hash_histogram(z, w, mask)
 
-    insert_ms, insert_dev, insert_n = timed(insert, 5, "paired_hist_kernel")
-    banked_ms, banked_dev, banked_n = timed(
-        lambda: insert_kernel.paired_hash_histogram_banked(zb, w, mb), 5,
-        "paired_hist_kernel")
-    query_ms, query_dev, query_n = timed(
-        lambda: query_kernel.sketch_query(q, w, counts), 200,
-        "sketch_query_kernel")
-    mhz, busy = sm_clock_while(insert, 90)
-    return {"tree": str(tree), "card": torch.cuda.get_device_name(0),
-            "insert_device_ms": insert_dev, "insert_event_ms": insert_ms,
-            "insert_records": insert_n,
-            "banked_device_ms": banked_dev, "banked_event_ms": banked_ms,
-            "banked_records": banked_n,
-            "query_device_ms": query_dev, "query_event_ms": query_ms,
-            "query_records": query_n,
-            "insert_sm_clock_mhz": mhz, "clock_sampled_busy": busy,
-            "max_sm_clock_mhz": int(subprocess.run(
-                ["nvidia-smi", "--query-gpu=clocks.max.sm",
-                 "--format=csv,noheader,nounits"], capture_output=True,
-                text=True, check=True, timeout=60).stdout.split()[0]),
-            "counts_sum": int(counts.sum()),
-            "bank_sum": int(bank.to(torch.int64).sum())}
+    def single():
+        return insert_kernel.hash_histogram(x, ws, mask)
+
+    out = {"tree": str(tree), "card": torch.cuda.get_device_name(0)}
+    for key, fn, reps, symbol in (
+        ("insert", insert, 5, "paired_hist_kernel"),
+        ("banked", lambda: insert_kernel.paired_hash_histogram_banked(
+            zb, w, mb), 5, "paired_hist_kernel"),
+        ("query", lambda: query_kernel.sketch_query(q, w, counts), 200,
+         "sketch_query_kernel"),
+        ("single", single, 5, "hist_kernel"),
+        ("single_p4", lambda: insert_kernel.hash_histogram(x, wk, mask), 5,
+         "hist_kernel"),
+        ("single_banked", lambda: insert_kernel.hash_histogram_banked(
+            xb, ws, mb), 5, "hist_kernel"),
+        ("srp", lambda: hash_kernel.srp_hash(xh, w), 20,
+         "srp_hash_reg_kernel"),
+    ):
+        event_ms, dev_ms, n = timed(fn, reps, symbol)
+        out.update({f"{key}_device_ms": dev_ms, f"{key}_event_ms": event_ms,
+                    f"{key}_records": n})
+    for key, fn, calls in (("insert", insert, 90), ("single", single, 300)):
+        mhz, busy = sm_clock_while(fn, calls)
+        out[f"{key}_sm_clock_mhz"] = mhz
+        out[f"{key}_clock_sampled_busy"] = busy
+    out["max_sm_clock_mhz"] = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    # The mass of each output, and its bucket-weighted sum (which moves
+    # when a point lands in another bucket of its row).
+    for key, t in (("counts", counts), ("bank", bank), ("single", single()),
+                   ("single_p4", insert_kernel.hash_histogram(x, wk, mask)),
+                   ("single_bank", insert_kernel.hash_histogram_banked(
+                       xb, ws, mb)),
+                   ("srp", hash_kernel.srp_hash(xh, w))):
+        t = t.to(torch.int64)
+        out[f"{key}_sum"] = int(t.sum())
+        out[f"{key}_bucket_sum"] = int(
+            (t * torch.arange(t.shape[-1], device=dev)).sum())
+    return out
 
 
 def main(argv) -> int:
@@ -138,7 +184,7 @@ def main(argv) -> int:
     print(smi, flush=True)
     for tree in argv:
         out = subprocess.run([sys.executable, __file__, "--child", tree],
-                             capture_output=True, text=True, timeout=600)
+                             capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)
             return out.returncode

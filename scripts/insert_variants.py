@@ -1,37 +1,51 @@
 #!/usr/bin/env python3
-"""Build variants of the paired insert kernel and compare them on one card.
+"""Build variants of the two insert kernels and compare them on one card.
 
     python3 scripts/insert_variants.py [--parent TREE]
 
-Each variant is a copy of ``src/repro_torch/kernels/csrc/paired_hash_histogram.cu``
+Each variant is a copy of an insert source in ``src/repro_torch/kernels/csrc``
 with at most one of its constants rewritten, compiled by ``nvcc`` with the
-repository's flags:
+repository's flags. The paired insert (``paired_hash_histogram.cu``,
+kernels 1 and 4):
 
-    default       the source as the package builds it (two hash rows per
-                  thread at d = 10, p <= 4; p <= 5 counts in registers)
-    rows=1        kRowsPerThread = 1: one hash row per thread
-    reg_planes=4  kRegPlanes = 4: p = 5 counts in shared memory
+    paired            the source as the package builds it (two hash rows per
+                      thread at d = 10, p <= 4; p <= 5 counts in registers)
+    paired rows=1     kRowsPerThread = 1: one hash row per thread
+    paired reg_planes=4  kRegPlanes = 4: p = 5 counts in shared memory
 
-``--parent TREE`` adds the paired insert source of another checkout (the
-parent commit, unpacked by ``git archive``) as the variant ``parent``.
+The single-sided insert (``hash_histogram.cu``, kernels 3 and 5):
+
+    single            the source as the package builds it
+    single narrow=N   kRowsNarrow = N (N = 1, 2, 4; the default's value is
+                      skipped): hash rows per thread at d = 11, p <= 2
+    single wide=N     kRowsWide = N (N = 1, 2): rows per thread at p = 3, 4
+
+``--parent TREE`` adds both insert sources of another checkout (the parent
+commit, unpacked by ``git archive``) as ``paired parent`` and ``single
+parent``.
 
 For every variant it prints one JSON line with:
 
 * ``ptxas``: registers and spill bytes of the instantiations the main path
-  runs (d = 10, p = 4, lone and banked);
-* ``sass``: the instruction mix of the lone d = 10, p = 4 kernel's hot loop
-  (the backward branch whose body has the most FMULs per instruction), from
-  ``cuobjdump -sass``: each opcode's count per (point, row) pair, where the
-  pairs per loop iteration are the float compares over 2p (every pair makes
-  exactly two per plane: ``acc > 0`` and ``acc < t2``); and the
+  runs (paired: d = 10, p = 4; single: d = 11 at p = 2 and p = 4; lone and
+  banked);
+* ``sass``: the instruction mix of the lone main-path kernel's hot loop
+  (paired d = 10, p = 4; single d = 11, p = 2): the backward branch whose
+  body has the most FMULs per instruction, from ``cuobjdump -sass``; each
+  opcode's count per (point, row) pair, where the pairs per loop iteration
+  are the float compares over the compares a pair makes (paired: two per
+  plane, ``acc > 0`` and ``acc < t2``; single: one, ``acc > 0``); and the
   instructions of the loop around it beyond the hot loop itself
-  (``outer_extra``: the per-group counting of the new kernel, which runs
-  once per 32 records; the per-tile staging of the parent's);
-* the median CUDA-event time of five launches (after a warm-up) of the lone
-  insert at n = 2^22, d = 10, R = 2048, p = 4, of the banked insert over 16
-  tenants of 2^18 rows (the last 1000 masked), and of the lone insert at
-  p = 5, each on the same seeded inputs;
-* ``equal``: whether each of its three outputs equals the default build's.
+  (``outer_extra``: the per-group counting of the new kernels, which runs
+  once per 32 records; the per-tile staging of the parents');
+* the median CUDA-event time of five launches (after a warm-up), on the
+  same seeded inputs, of: paired, the lone insert at n = 2^22, d = 10,
+  R = 2048, p = 4 (``lone_ms``), the banked insert over 16 tenants of 2^18
+  rows, the last 1000 masked (``banked_ms``), and the lone insert at p = 5
+  (``lone_p5_ms``); single, the lone insert at n = 2^22, d = 11, R = 1024,
+  p = 2 (``lone_ms``), the banked insert over 16 tenants of 2^18 rows at
+  p = 2 (``banked_ms``) and the lone insert at p = 4 (``lone_p4_ms``);
+* ``equal``: whether each of its outputs equals its family's default build's.
 
 The copies and their libraries go to
 ``src/repro_torch/kernels/_build/variants/``. Needs a CUDA card and ``nvcc``.
@@ -54,38 +68,71 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 CSRC = ROOT / "src/repro_torch/kernels/csrc"
 
-N_ROWS, D, ROWS, PLANES = 1 << 22, 10, 2048, 4
-TENANTS, TENANT_ROWS, TENANT_SHORT = 16, 1 << 18, 1000
-# Variant name: the constant it rewrites and its value (None: the source).
-VARIANTS = {"default": None, "rows=1": ("kRowsPerThread", 1),
-            "reg_planes=4": ("kRegPlanes", 4)}
-# Mangled-name stems of the main path's instantiations (lone, banked):
-# paired_hist_kernel<4, 10, 10, B> now, <4, 16, B> in the parent.
-MAIN = {"new": ("paired_hist_kernelILi4ELi10ELi10ELb0E",
-                "paired_hist_kernelILi4ELi10ELi10ELb1E"),
-        "parent": ("paired_hist_kernelILi4ELi16ELb0E",
-                   "paired_hist_kernelILi4ELi16ELb1E")}
+N_ROWS, TENANTS, TENANT_ROWS, TENANT_SHORT = 1 << 22, 16, 1 << 18, 1000
+
+# Per family: its source and entry point, the shape of its main path (d as
+# the kernel takes it, the width of w's feature axis, R, p, the p of the
+# third timing and its key), the compares per (pair, plane), the constants
+# its variants rewrite, and the mangled-name stems of its main-path
+# instantiations in this tree and in the parent (lone, banked, and for the
+# single-sided insert lone at p = 4; its parent's template had no exact
+# width).
+PAIRED_STEMS = ("paired_hist_kernelILi4ELi10ELi10ELb0E",
+                "paired_hist_kernelILi4ELi10ELi10ELb1E")
+FAMILIES = {
+    "paired": dict(
+        source="paired_hash_histogram.cu", entry="storm_paired_hash_histogram",
+        d=10, d_w=12, rows=2048, planes=4, third=(5, "lone_p5_ms"),
+        compares=2,
+        variants={"rows=1": ("kRowsPerThread", 1),
+                  "reg_planes=4": ("kRegPlanes", 4)},
+        stems={"new": PAIRED_STEMS, "parent": PAIRED_STEMS}),
+    "single": dict(
+        source="hash_histogram.cu", entry="storm_hash_histogram",
+        d=11, d_w=11, rows=1024, planes=2, third=(4, "lone_p4_ms"),
+        compares=1,
+        variants={"narrow=1": ("kRowsNarrow", 1),
+                  "narrow=2": ("kRowsNarrow", 2),
+                  "narrow=4": ("kRowsNarrow", 4),
+                  "wide=1": ("kRowsWide", 1),
+                  "wide=2": ("kRowsWide", 2)},
+        stems={"new": ("hist_kernelILi2ELi11ELi11ELb0E",
+                       "hist_kernelILi2ELi11ELi11ELb1E",
+                       "hist_kernelILi4ELi11ELi11ELb0E"),
+               "parent": ("hist_kernelILi2ELi16ELb0E",
+                          "hist_kernelILi2ELi16ELb1E",
+                          "hist_kernelILi4ELi16ELb0E")}),
+}
 INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)"
                   r"([^;]*);")
 
 
+def constant_pattern(name):
+    return rf"(constexpr int {name} = )(\d+);"
+
+
 def variant_source(src, constant, out_dir, name):
     """A copy of ``src`` in ``out_dir`` with ``constexpr int NAME = v;``
-    rewritten to ``constant = (NAME, value)``."""
+    rewritten to ``constant = (NAME, value)``; None where the source already
+    has that value (the default build is that variant)."""
     text = src.read_text()
-    pattern = rf"(constexpr int {constant[0]} = )\d+;"
-    if len(re.findall(pattern, text)) != 1:
+    found = re.findall(constant_pattern(constant[0]), text)
+    if len(found) != 1:
         raise RuntimeError(f"{constant[0]} is not one constant of {src}")
-    out = out_dir / f"{name.replace('=', '_')}.cu"
-    out.write_text(re.sub(pattern, rf"\g<1>{constant[1]};", text))
+    if int(found[0][1]) == constant[1]:
+        return None
+    out = out_dir / f"{name.replace('=', '_').replace(' ', '_')}.cu"
+    out.write_text(re.sub(constant_pattern(constant[0]),
+                          rf"\g<1>{constant[1]};", text))
     return out
 
 
 def build(name, src, out_dir, nvcc_path, flags):
-    lib = out_dir / f"lib{name.replace('=', '_')}.so"
+    lib = out_dir / f"lib{name.replace('=', '_').replace(' ', '_')}.so"
     # -I: the copies include the package's headers from beside the source.
-    proc = subprocess.run([nvcc_path, *flags, "-I", str(CSRC), "-o",
-                           str(lib), str(src)], capture_output=True, text=True)
+    proc = subprocess.run([nvcc_path, *flags, "-I", str(src.parent), "-I",
+                           str(CSRC), "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}"
                            f"{proc.stderr}")
@@ -113,7 +160,7 @@ def ptxas_usage(log, stems):
     return {k: tuple(v) for k, v in usage.items()}
 
 
-def hot_loop_mix(lib, stem, planes):
+def hot_loop_mix(lib, stem, planes, compares):
     """Opcode counts per pair in the hot loop of the function ``stem``."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(lib)], capture_output=True, text=True,
@@ -121,7 +168,9 @@ def hot_loop_mix(lib, stem, planes):
     body, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = stem in line
+            # The mangled name ends the line; `paired_hist_kernel` must not
+            # match the stem `hist_kernel...`.
+            inside = re.search(rf"(?<![A-Za-z_]){stem}", line) is not None
             continue
         if inside:
             m = INSN.search(line)
@@ -141,8 +190,7 @@ def hot_loop_mix(lib, stem, planes):
              and len(lp[2]) > len(ops)]
     outer_extra = (min(len(lp[2]) for lp in outer) - len(ops)) if outer else 0
     counts = collections.Counter(o.split(".")[0] for o in ops)
-    compares = counts["FSETP"] + counts["FSET"]
-    pairs = compares / (2 * planes)
+    pairs = (counts["FSETP"] + counts["FSET"]) / (compares * planes)
     return {"instructions": len(ops), "pairs_per_iteration": pairs,
             "per_pair": {k: round(v / pairs, 3)
                          for k, v in sorted(counts.items())},
@@ -169,29 +217,46 @@ def main() -> int:
     print(smi, flush=True)
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC / "paired_hash_histogram.cu"
-    jobs = {name: (src if constant is None else
-                   variant_source(src, constant, out_dir, name), "new")
-            for name, constant in VARIANTS.items()}
-    if args.parent is not None:
-        jobs["parent"] = (args.parent.resolve() / "src/repro_torch/kernels/csrc"
-                          / "paired_hash_histogram.cu", "parent")
+    # name -> (family, source, "new" or "parent")
+    jobs = {}
+    for fam, spec in FAMILIES.items():
+        src = _build.CSRC / spec["source"]
+        jobs[fam] = (fam, src, "new")
+        for label, constant in spec["variants"].items():
+            copy = variant_source(src, constant, out_dir, f"{fam} {label}")
+            if copy is not None:
+                jobs[f"{fam} {label}"] = (fam, copy, "new")
+        if args.parent is not None:
+            jobs[f"{fam} parent"] = (fam, args.parent.resolve()
+                                     / "src/repro_torch/kernels/csrc"
+                                     / spec["source"], "parent")
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(
-            lambda name: build(name, jobs[name][0], out_dir, _build.nvcc(),
+            lambda name: build(name, jobs[name][1], out_dir, _build.nvcc(),
                                _build.NVCC_FLAGS), jobs)))
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    z, _ = lsh.scale_to_unit_ball(
-        torch.randn(N_ROWS, D, generator=gen, device=dev))
-    z = z.contiguous()
-    w = torch.randn(PLANES, D + 2, ROWS, generator=gen, device=dev)
-    w5 = torch.randn(PLANES + 1, D + 2, ROWS, generator=gen, device=dev)
+
+    def unit_ball(n, d):
+        return lsh.scale_to_unit_ball(
+            torch.randn(n, d, generator=gen, device=dev))[0].contiguous()
+
+    inputs = {}
+    for fam, spec in FAMILIES.items():
+        d, d_w, rows, planes = (spec[k] for k in ("d", "d_w", "rows",
+                                                  "planes"))
+        # The paired insert takes z; the single-sided one augmented rows.
+        rows_of = ((lambda n: unit_ball(n, d)) if fam == "paired" else
+                   (lambda n: lsh.augment_data(unit_ball(n, d - 2))))
+        inputs[fam] = dict(
+            x=rows_of(N_ROWS).contiguous(),
+            xb=rows_of(TENANTS * TENANT_ROWS).reshape(
+                TENANTS, TENANT_ROWS, d).contiguous(),
+            w=torch.randn(planes, d_w, rows, generator=gen, device=dev),
+            w3=torch.randn(spec["third"][0], d_w, rows, generator=gen,
+                           device=dev))
     ones = torch.ones(N_ROWS, device=dev)
-    zb = torch.randn(TENANTS, TENANT_ROWS, D, generator=gen, device=dev)
-    zb = lsh.scale_to_unit_ball(zb.reshape(-1, D))[0].reshape(zb.shape)
-    zb = zb.contiguous()
     mb = torch.ones(TENANTS, TENANT_ROWS, device=dev)
     mb[-1, TENANT_ROWS - TENANT_SHORT:] = 0
     stream = torch.cuda.current_stream().cuda_stream
@@ -210,13 +275,15 @@ def main() -> int:
                 times.append(start.elapsed_time(end))
         return statistics.median(times), hist.clone()
 
-    reference = None
+    reference = {}
     for name, (lib_path, log) in built.items():
+        fam, _, tree = jobs[name]
+        spec, inp = FAMILIES[fam], inputs[fam]
         lib = ctypes.CDLL(str(lib_path))
-        lone = lib.storm_paired_hash_histogram
+        lone = getattr(lib, spec["entry"])
         lone.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                          + [ctypes.c_void_p])
-        banked = lib.storm_paired_hash_histogram_banked
+        banked = getattr(lib, spec["entry"] + "_banked")
         banked.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
         lone.restype = banked.restype = ctypes.c_int
@@ -226,32 +293,34 @@ def main() -> int:
             if code != 0:
                 raise RuntimeError(f"{name}: CUDA error {code}")
 
-        h4 = torch.zeros(ROWS, 1 << PLANES, dtype=torch.int32, device=dev)
-        h5 = torch.zeros(ROWS, 1 << (PLANES + 1), dtype=torch.int32,
+        d, rows, planes = spec["d"], spec["rows"], spec["planes"]
+        p3, key3 = spec["third"]
+        h = torch.zeros(rows, 1 << planes, dtype=torch.int32, device=dev)
+        h3 = torch.zeros(rows, 1 << p3, dtype=torch.int32, device=dev)
+        hb = torch.zeros(TENANTS, rows, 1 << planes, dtype=torch.int32,
                          device=dev)
-        hb = torch.zeros(TENANTS, ROWS, 1 << PLANES, dtype=torch.int32,
-                         device=dev)
-        lone_ms, c4 = timed(lambda: call(
-            lone, z.data_ptr(), w.data_ptr(), ones.data_ptr(), h4.data_ptr(),
-            h4.data_ptr(), N_ROWS, D, PLANES, ROWS, 4, stream), h4)
+        x, xb, w, w3 = inp["x"], inp["xb"], inp["w"], inp["w3"]
+        lone_ms, c1 = timed(lambda: call(
+            lone, x.data_ptr(), w.data_ptr(), ones.data_ptr(), h.data_ptr(),
+            h.data_ptr(), N_ROWS, d, planes, rows, 4, stream), h)
         banked_ms, cb = timed(lambda: call(
-            banked, zb.data_ptr(), w.data_ptr(), mb.data_ptr(), hb.data_ptr(),
-            hb.data_ptr(), TENANTS, TENANT_ROWS, D, PLANES, ROWS, 4, stream),
+            banked, xb.data_ptr(), w.data_ptr(), mb.data_ptr(), hb.data_ptr(),
+            hb.data_ptr(), TENANTS, TENANT_ROWS, d, planes, rows, 4, stream),
             hb)
-        p5_ms, c5 = timed(lambda: call(
-            lone, z.data_ptr(), w5.data_ptr(), ones.data_ptr(), h5.data_ptr(),
-            h5.data_ptr(), N_ROWS, D, PLANES + 1, ROWS, 4, stream), h5)
-        if reference is None:
-            reference = (c4, cb, c5)
-        stems = MAIN[jobs[name][1]]
+        third_ms, c3 = timed(lambda: call(
+            lone, x.data_ptr(), w3.data_ptr(), ones.data_ptr(), h3.data_ptr(),
+            h3.data_ptr(), N_ROWS, d, p3, rows, 4, stream), h3)
+        outputs = (c1, cb, c3)
+        reference.setdefault(fam, outputs)
+        stems = spec["stems"][tree]
         print(json.dumps({
             "variant": name, "card": torch.cuda.get_device_name(0),
             "ptxas": ptxas_usage(log, stems),
-            "sass": hot_loop_mix(lib_path, stems[0], PLANES),
-            "lone_p4_ms": lone_ms, "banked_p4_ms": banked_ms,
-            "lone_p5_ms": p5_ms,
-            "equal": [torch.equal(a, b) for a, b in zip((c4, cb, c5),
-                                                        reference)],
+            "sass": hot_loop_mix(lib_path, stems[0], planes,
+                                 spec["compares"]),
+            "lone_ms": lone_ms, "banked_ms": banked_ms, key3: third_ms,
+            "equal": [torch.equal(a, b) for a, b in zip(outputs,
+                                                        reference[fam])],
         }), flush=True)
     return 0
 

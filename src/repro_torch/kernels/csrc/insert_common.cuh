@@ -1,7 +1,9 @@
 // Shared by the insert kernels (paired_hash_histogram.cu, hash_histogram.cu)
 // and the SRP hash (srp_hash.cu): the grid sizing over (R-tile, n-chunk,
-// tenant), the one-row projection loop of the single-sided hash, and the
-// saturating epilogue that narrows the int32 histogram to int16/int8.
+// tenant), the one-row projection loop of the SRP hash, the inserts'
+// cp.async staging of a tile, the warp-ballot compaction of its valid
+// points into records, the bit-plane counting of a group of 32 records, and
+// the saturating epilogue that narrows the int32 histogram to int16/int8.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,6 +78,115 @@ __device__ __forceinline__ int srp_code(const float (&xa)[DMAX],
     code |= (acc > 0.f) << j;
   }
   return code;
+}
+
+// ---- the inserts' tile pipeline -------------------------------------------
+
+constexpr int kGroup = 32;  // records per bit-plane word
+constexpr int kSub = 8;     // records per unrolled step of the group loop
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Issue the copies of one tile into shared memory and commit them as one
+// group: `count` floats of points from src to dst (16 bytes at a time where
+// src is 16-byte aligned, dst always is; 4 bytes otherwise and for the
+// tail), and npts mask values from msrc to mdst. All threads of the block
+// call it.
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int count, float* mdst,
+                                           const float* msrc, int npts,
+                                           int tid, int nthr) {
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = count >> 2;
+    for (int i = tid; i < n4; i += nthr) cp_async16(dst + 4 * i, src + 4 * i);
+    i0 = n4 << 2;
+  }
+  for (int i = i0 + tid; i < count; i += nthr) cp_async4(dst + i, src + i);
+  for (int i = tid; i < npts; i += nthr) cp_async4(mdst + i, msrc + i);
+  cp_async_commit();
+}
+
+// The slot of this lane's point among the tile's kept points: a warp ballot
+// of `keep` and one shared atomicAdd per warp on *count, so the kept points
+// of a warp take consecutive slots. Every lane of the warp calls it.
+__device__ __forceinline__ int compact_slot(bool keep, int* count) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  int slot = 0;
+  if (lane == 0 && ballot != 0) slot = atomicAdd(count, __popc(ballot));
+  return __shfl_sync(0xffffffffu, slot, 0)
+         + __popc(ballot & ((1u << lane) - 1u));
+}
+
+// Record k of a tile: REC floats (a multiple of 4) as REC/4 float4 stores
+// and broadcast loads.
+template <int REC>
+__device__ __forceinline__ void store_record(float* recs, int k,
+                                             const float (&v)[REC]) {
+  float4* dst = reinterpret_cast<float4*>(recs) + k * (REC / 4);
+#pragma unroll
+  for (int q = 0; q < REC / 4; ++q)
+    dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+template <int REC>
+__device__ __forceinline__ void load_record(const float* recs, int k,
+                                            float (&v)[REC]) {
+  const float4* src = reinterpret_cast<const float4*>(recs) + k * (REC / 4);
+#pragma unroll
+  for (int q = 0; q < REC / 4; ++q) {
+    const float4 a = src[q];
+    v[4 * q] = a.x;
+    v[4 * q + 1] = a.y;
+    v[4 * q + 2] = a.z;
+    v[4 * q + 3] = a.w;
+  }
+}
+
+// One side of a group of up to 32 records against one hash row: bit k of
+// words[j] says plane j of record k is on. cnt[b] += popc(M_b & valid), M_b
+// the AND over planes j of words[j] (bit j of b set) or ~words[j], built as
+// a binary tree: level j splits each bucket below 2^j on plane j. The loops
+// have constant bounds so that they unroll and the words stay in registers.
+template <int P>
+__device__ __forceinline__ void count_group(const unsigned (&words)[P],
+                                            unsigned valid,
+                                            int (&cnt)[1 << P]) {
+  unsigned m[1 << P];
+  m[0] = valid;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+#pragma unroll
+    for (int b = (1 << P) - 1; b >= 0; --b) {
+      if (b >= (2 << j)) continue;  // not yet split
+      if (b & (1 << j))
+        m[b] = m[b ^ (1 << j)] & words[j];
+      else
+        m[b] &= ~words[j];
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < (1 << P); ++b) cnt[b] += __popc(m[b]);
 }
 
 template <typename T>

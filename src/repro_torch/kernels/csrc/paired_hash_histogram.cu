@@ -79,8 +79,8 @@ constexpr int kRowsPerThread = 2;
 // than in the shared histogram. (scripts/insert_variants.py times both.)
 constexpr int kRegPlanes = 5;
 constexpr int kExactWidth = 10;  // the regression family's d
-constexpr int kGroup = 32;       // records per bit-plane word
-constexpr int kSub = 8;          // records per unrolled step
+using storm::kGroup;
+using storm::kSub;
 
 // One instantiation's compile-time shape. D > 0: exactly D features;
 // D = 0: a runtime d <= DMAX.
@@ -105,42 +105,6 @@ size_t smem_bytes(int threads) {
          + (S::kReg ? 0 : sizeof(int) * S::kBuckets * threads);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Record k of the tile: REC floats as REC/4 float4 broadcasts.
-template <int REC>
-__device__ __forceinline__ void load_record(const float* recs, int k,
-                                            float (&v)[REC]) {
-  const float4* src = reinterpret_cast<const float4*>(recs) + k * (REC / 4);
-#pragma unroll
-  for (int q = 0; q < REC / 4; ++q) {
-    const float4 a = src[q];
-    v[4 * q] = a.x;
-    v[4 * q + 1] = a.y;
-    v[4 * q + 2] = a.z;
-    v[4 * q + 3] = a.w;
-  }
-}
-
 // Both sides of every plane of one record against one hash row:
 // pos[j] = acc_j > 0, neg[j] = acc_j < (2*pad)*w_pad[j].
 template <int P, int DMAX, int REC, bool EXACT>
@@ -160,36 +124,6 @@ __device__ __forceinline__ void project(const float (&v)[REC],
     pos[j] = acc > 0.f;
     neg[j] = acc < t2;
   }
-}
-
-// cnt[b] += popc(M_b(pw) & valid) + popc(M_b(nw) & valid), M_b the AND over
-// planes j of X_j (bit j of b set) or ~X_j, built as a binary tree: level j
-// splits each bucket below 2^j on plane j. The loops have constant bounds so
-// that they unroll and the words stay in registers.
-template <int P>
-__device__ __forceinline__ void count_group(const unsigned (&pw)[P],
-                                            const unsigned (&nw)[P],
-                                            unsigned valid,
-                                            int (&cnt)[1 << P]) {
-  unsigned mp[1 << P], mn[1 << P];
-  mp[0] = valid;
-  mn[0] = valid;
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-#pragma unroll
-    for (int b = (1 << P) - 1; b >= 0; --b) {
-      if (b >= (2 << j)) continue;  // not yet split
-      if (b & (1 << j)) {
-        mp[b] = mp[b ^ (1 << j)] & pw[j];
-        mn[b] = mn[b ^ (1 << j)] & nw[j];
-      } else {
-        mp[b] &= ~pw[j];
-        mn[b] &= ~nw[j];
-      }
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < (1 << P); ++b) cnt[b] += __popc(mp[b]) + __popc(mn[b]);
 }
 
 template <int P, int D, int DMAX, bool BANKED>
@@ -252,19 +186,8 @@ paired_hist_kernel(const float* __restrict__ z, const float* __restrict__ w,
   auto stage = [&](int tt, int b) {
     const long long base = start + (long long)tt * TILE;
     const int npts = (int)min((long long)TILE, end - base);
-    const float* src = z + base * d;
-    float* dst = raw + b * TILE * DMAX;
-    const int count = npts * d;
-    int i0 = 0;
-    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-      const int n4 = count >> 2;
-      for (int i = tid; i < n4; i += nthr) cp_async16(dst + 4 * i, src + 4 * i);
-      i0 = n4 << 2;
-    }
-    for (int i = i0 + tid; i < count; i += nthr) cp_async4(dst + i, src + i);
-    for (int i = tid; i < npts; i += nthr)
-      cp_async4(msk + b * TILE + i, mask + base + i);
-    cp_async_commit();
+    storm::stage_tile(raw + b * TILE * DMAX, z + base * d, npts * d,
+                      msk + b * TILE, mask + base, npts, tid, nthr);
   };
 
   if (ntiles > 0) stage(0, 0);
@@ -272,9 +195,9 @@ paired_hist_kernel(const float* __restrict__ z, const float* __restrict__ w,
     const int buf = tt & 1;
     if (tt + 1 < ntiles) {
       stage(tt + 1, buf ^ 1);  // its buffer was compacted before barrier B
-      cp_async_wait<1>();
+      storm::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      storm::cp_async_wait<0>();
     }
     __syncthreads();  // A: tile tt has landed; tile tt-1 has been consumed
 
@@ -285,16 +208,10 @@ paired_hist_kernel(const float* __restrict__ z, const float* __restrict__ w,
       const float* rz = raw + buf * TILE * DMAX;
       const float* rm = msk + buf * TILE;
       if (tid == 0) tile_count[buf ^ 1] = tile_weighted[buf ^ 1] = 0;
-      const unsigned lane = tid & 31;
       for (int k0 = 0; k0 < TILE; k0 += nthr) {  // uniform trip count
         const int k = k0 + tid;
         const int inc = k < npts ? (int)rm[k] : 0;
-        const unsigned ballot = __ballot_sync(0xffffffffu, inc != 0);
-        int slot = 0;
-        if (lane == 0 && ballot != 0)
-          slot = atomicAdd(&tile_count[buf], __popc(ballot));
-        slot = __shfl_sync(0xffffffffu, slot, 0)
-               + __popc(ballot & ((1u << lane) - 1u));
+        const int slot = storm::compact_slot(inc != 0, &tile_count[buf]);
         if (inc != 0) {
           if (inc != 1) tile_weighted[buf] = 1;
           float v[REC];
@@ -309,11 +226,7 @@ paired_hist_kernel(const float* __restrict__ z, const float* __restrict__ w,
             }
           v[S::kPadSlot] = __fsqrt_rn(fmaxf(__fsub_rn(1.f, sq), 0.f));
           v[S::kIncSlot] = __int_as_float(inc);
-          float4* dst = reinterpret_cast<float4*>(recs + slot * REC);
-#pragma unroll
-          for (int q = 0; q < REC / 4; ++q)
-            dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
-                                 v[4 * q + 3]);
+          storm::store_record(recs, slot, v);
         }
       }
     }
@@ -342,7 +255,7 @@ paired_hist_kernel(const float* __restrict__ z, const float* __restrict__ w,
 #pragma unroll
             for (int kk = 0; kk < kSub; ++kk) {
               float v[REC];
-              load_record(recs, g0 + q + kk, v);
+              storm::load_record(recs, g0 + q + kk, v);
               const float pad = v[S::kPadSlot];
               const float pad2 = __fmul_rn(2.f, pad);
 #pragma unroll
@@ -368,8 +281,10 @@ paired_hist_kernel(const float* __restrict__ z, const float* __restrict__ w,
           const unsigned valid =
               glen == kGroup ? 0xffffffffu : (1u << glen) - 1u;
 #pragma unroll
-          for (int t = 0; t < TR; ++t)
-            count_group<P>(pw[t], nw[t], valid, cnt[t]);
+          for (int t = 0; t < TR; ++t) {
+            storm::count_group<P>(pw[t], valid, cnt[t]);
+            storm::count_group<P>(nw[t], valid, cnt[t]);
+          }
         }
         continue;
       }
@@ -379,7 +294,7 @@ paired_hist_kernel(const float* __restrict__ z, const float* __restrict__ w,
       // register path, and every tile of the shared-histogram path.
       for (int k = 0; k < count; ++k) {
         float v[REC];
-        load_record(recs, k, v);
+        storm::load_record(recs, k, v);
         const float pad = v[S::kPadSlot];
         const float pad2 = __fmul_rn(2.f, pad);
         const int inc = __float_as_int(v[S::kIncSlot]);

@@ -45,14 +45,42 @@ def _augmented(seed, n, d):
 
 # -- the single-sided insert -----------------------------------------------------
 
+def _generic(seed, n, d):
+    """Rows that are not augmented: about a tenth of the entries +0.0 and a
+    tenth -0.0, every 7th row all +0.0 and every 11th all -0.0."""
+    rng = np.random.default_rng(seed + 1000)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    u = rng.uniform(size=x.shape)
+    x[u < 0.1] = 0.0
+    x[(u >= 0.1) & (u < 0.2)] = -0.0
+    x[::7] = 0.0
+    x[5::11] = -0.0
+    return x
+
+
+def _insert_case(seed, n, d, p, r, masked, rows="augmented"):
+    return pytest.param(seed, n, d, p, r, masked, rows,
+                        id="-".join(map(str, (seed, n, d, p, r, masked)))
+                        + ("" if rows == "augmented" else f"-{rows}"))
+
+
 @pytest.mark.parametrize("out", ["int32", "int16", "int8"])
-@pytest.mark.parametrize("seed,n,d,p,r,masked", [
-    (0, 41, 3, 1, 19, True),
-    (1, 130, 6, 2, 45, False),
-    (2, 61, 4, 8, 13, True),
+@pytest.mark.parametrize("seed,n,d,p,r,masked,rows", [
+    _insert_case(0, 41, 3, 1, 19, True),
+    _insert_case(1, 130, 6, 2, 45, False),
+    _insert_case(2, 61, 4, 8, 13, True),
+    # The single-sided family's width (d = 9, augmented to 11 columns) at
+    # the margin and kmeans planes; then rows that are not augmented.
+    _insert_case(3, 200, 9, 2, 64, True),
+    _insert_case(4, 150, 9, 4, 48, False),
+    _insert_case(5, 200, 9, 2, 64, True, "generic"),
+    _insert_case(6, 150, 9, 4, 48, True, "generic"),
+    _insert_case(7, 97, 3, 3, 20, False, "generic"),
 ])
-def test_hash_histogram_equals_jax(seed, n, d, p, r, masked, out):
-    x = _augmented(seed, n, d)
+def test_hash_histogram_equals_jax(seed, n, d, p, r, masked, rows, out):
+    # w has d + 2 features: the augmented width, or as many generic columns.
+    x = _augmented(seed, n, d) if rows == "augmented" else _generic(
+        seed, n, d + 2)
     rng = np.random.default_rng(seed)
     w = rng.normal(size=(p, d + 2, r)).astype(np.float32)
     mask = (rng.uniform(size=n) < 0.7 if masked else np.ones(n)).astype(

@@ -162,7 +162,8 @@ def _single_sided_inputs(seed, n, d, p, r, masked, device, tenants=None):
     rng = np.random.default_rng(seed)
     lead = (n,) if tenants is None else (tenants, n)
     z = rng.normal(size=lead + (d - 2,)).astype(np.float32)
-    z /= np.quantile(np.linalg.norm(z, axis=-1), 0.9) * 1.05
+    if z.size:
+        z /= np.quantile(np.linalg.norm(z, axis=-1), 0.9) * 1.05
     z /= np.maximum(np.linalg.norm(z, axis=-1, keepdims=True), 1.0)
     x = lsh.augment_data(torch.from_numpy(z)).contiguous()
     w = rng.normal(size=(p, d, r)).astype(np.float32)
@@ -183,6 +184,171 @@ def test_single_sided_insert_kernel_equals_plain_version(cuda, seed, n, d, p,
     x, w, mask = _single_sided_inputs(seed, n, d, p, r, masked, cuda)
     got = histogram_kernel.hash_histogram(x, w, mask, out)
     assert torch.equal(got, ref.hash_histogram(x, w, mask, out))
+
+
+def _generic_rows(seed, lead, d, device):
+    """Rows that are not augmented: about a tenth of the entries +0.0 and a
+    tenth -0.0, every 97th row all +0.0 and every 194th (from 48) all -0.0.
+    A kernel that skipped a column, or assumed the augmented zero column,
+    or started a sum from +0 in a way that a comparison sees, differs."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=lead + (d,)).astype(np.float32)
+    u = rng.uniform(size=x.shape)
+    x[u < 0.1] = 0.0
+    x[(u >= 0.1) & (u < 0.2)] = -0.0
+    x[..., ::97, :] = 0.0
+    x[..., 48::194, :] = -0.0
+    return torch.from_numpy(x).to(device)
+
+
+def _single_rows(seed, n, d, p, r, device, tenants=None):
+    """Augmented rows where d >= 3, else generic ones; w and a 0/1 mask."""
+    if d >= 3:
+        return _single_sided_inputs(seed, n, d, p, r, True, device, tenants)
+    rng = np.random.default_rng(seed)
+    lead = (n,) if tenants is None else (tenants, n)
+    w = torch.from_numpy(rng.normal(size=(p, d, r)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=lead) < 0.7).astype(np.float32))
+    return _generic_rows(seed, lead, d, device), w.to(device), mask.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("d", [1, 3, 4, 7, 11, 15, 16, 17, 31, 32])
+def test_single_sided_insert_widths_and_planes_equal_plain_version(cuda, d,
+                                                                   p):
+    # The exact-width body (d = 11, p <= 5), the generic bodies (DMAX 16 and
+    # 32), register counters and the shared histogram; lone and banked.
+    x, w, mask = _single_rows(d * 10 + p, 3001, d, p, 300, cuda)
+    got = histogram_kernel.hash_histogram(x, w, mask)
+    assert torch.equal(got, ref.hash_histogram(x, w, mask))
+    xb = torch.stack([x, x.flip(0)])
+    mb = torch.stack([mask, 1 - mask])
+    banked = histogram_kernel.hash_histogram_banked(xb, w, mb)
+    assert torch.equal(banked, ref.hash_histogram_banked(xb, w, mb))
+    assert torch.equal(banked[0], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p", [(11, 2), (11, 4), (17, 8), (3, 2)])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 100_003])
+def test_single_sided_insert_ragged_streams_equal_plain_version(cuda, n, d,
+                                                                p):
+    x, w, mask = _single_rows(n + d, n, d, p, 257, cuda)
+    before = histogram_kernel.hash_histogram.launches
+    got = histogram_kernel.hash_histogram(x, w, mask)
+    assert histogram_kernel.hash_histogram.launches == before + (n > 0)
+    assert torch.equal(got, ref.hash_histogram(x, w, mask))
+    assert torch.equal(got.to(torch.int64).sum(1),
+                       torch.full((257,), int(mask.sum()),
+                                  dtype=torch.int64, device=cuda))
+    xb, mb = x[None], mask[None]
+    before = histogram_kernel.hash_histogram_banked.launches
+    banked = histogram_kernel.hash_histogram_banked(xb, w, mb)
+    assert histogram_kernel.hash_histogram_banked.launches == before + (n > 0)
+    assert torch.equal(banked[0], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p", [(11, 2), (13, 4)])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_single_sided_insert_unaligned_views_equal_plain_version(cuda, offset,
+                                                                 d, p):
+    # Rows that start `offset` floats into their buffer: not 16-byte
+    # aligned, so the staging copies them 4 bytes at a time.
+    x, w, mask = _single_rows(offset + d, 10_001, d, p, 512, cuda)
+    buf = torch.empty(x.numel() + offset, device=cuda)
+    xv = buf[offset:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16
+    got = histogram_kernel.hash_histogram(xv, w, mask)
+    assert torch.equal(got, ref.hash_histogram(x, w, mask))
+    xb = torch.empty(2 * x.numel() + offset, device=cuda)[offset:].view(
+        (2,) + x.shape)
+    xb.copy_(torch.stack([x, x]))
+    mb = torch.stack([mask, mask])
+    banked = histogram_kernel.hash_histogram_banked(xb, w, mb)
+    assert torch.equal(banked, ref.hash_histogram_banked(xb, w, mb))
+    assert torch.equal(banked[1], got)
+
+
+@pytest.mark.gpu
+def test_gateway_shaped_single_sided_bank_equals_plain_and_lone(cuda):
+    # 16 tenants x 4096 slots, about half masked, interleaved.
+    s, n, d, p, r = 16, 4096, 11, 2, 1024
+    x, w, _ = _single_sided_inputs(12, n, d, p, r, False, cuda, tenants=s)
+    rng = np.random.default_rng(13)
+    mask = torch.from_numpy((rng.uniform(size=(s, n)) < 0.5).astype(
+        np.float32)).to(cuda)
+    got = histogram_kernel.hash_histogram_banked(x, w, mask)
+    assert torch.equal(got, ref.hash_histogram_banked(x, w, mask))
+    for i in range(s):
+        assert torch.equal(got[i], histogram_kernel.hash_histogram(
+            x[i].contiguous(), w, mask[i].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p", [(11, 2), (11, 4), (11, 5), (16, 4), (17, 8),
+                                 (3, 1)])
+def test_single_sided_insert_integer_weighted_mask_equals_plain_version(
+        cuda, d, p):
+    x, w, _ = _single_rows(d + p, 5000, d, p, 200, cuda)
+    mask = _weighted_mask(d + p, (5000,), cuda)
+    assert int(mask.max()) == 3
+    got = histogram_kernel.hash_histogram(x, w, mask)
+    assert torch.equal(got, ref.hash_histogram(x, w, mask))
+    assert torch.equal(got.to(torch.int64).sum(1),
+                       torch.full((200,), int(mask.to(torch.int64).sum()),
+                                  dtype=torch.int64, device=cuda))
+    xb = torch.stack([x, x, x])
+    mb = _weighted_mask(d + p + 1, (3, 5000), cuda)
+    mb[0] = mask
+    banked = histogram_kernel.hash_histogram_banked(xb, w, mb)
+    assert torch.equal(banked, ref.hash_histogram_banked(xb, w, mb))
+    assert torch.equal(banked[0], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p,out", [
+    (11, 1, torch.int16), (3, 1, torch.int16), (11, 2, torch.int8),
+    (11, 4, torch.int8), (11, 5, torch.int8), (17, 8, torch.int8),
+])
+def test_single_sided_insert_narrow_outputs_saturate(cuda, d, p, out):
+    x, w, _ = _single_rows(3 * d + p, 100_003, d, p, 50, cuda)
+    mask = _weighted_mask(p, (100_003,), cuda)
+    got = histogram_kernel.hash_histogram(x, w, mask, out)
+    assert int(got.max()) == torch.iinfo(out).max
+    assert torch.equal(got, ref.hash_histogram(x, w, mask, out))
+    banked = histogram_kernel.hash_histogram_banked(x[None], w, mask[None],
+                                                    out)
+    assert torch.equal(banked[0], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p", [(11, 2), (11, 4), (11, 5), (5, 8), (16, 3),
+                                 (32, 4), (1, 2)])
+def test_single_sided_insert_generic_rows_equal_plain_version(cuda, d, p):
+    # Rows that are not augmented, with exact +0.0 and -0.0 entries and
+    # all-zero rows: the kernel projects every column it is given.
+    x = _generic_rows(d + 7 * p, (20_000,), d, cuda)
+    rng = np.random.default_rng(d + p)
+    w = torch.from_numpy(rng.normal(size=(p, d, 333)).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy((rng.uniform(size=20_000) < 0.9).astype(
+        np.float32)).to(cuda)
+    got = histogram_kernel.hash_histogram(x, w, mask)
+    want = ref.hash_histogram(x, w, mask)
+    assert torch.equal(got, want)
+    # All-zero rows project to exactly 0 on every plane: bucket 0.
+    zero = torch.zeros(64, d, device=cuda)
+    ones = torch.ones(64, device=cuda)
+    assert torch.equal(histogram_kernel.hash_histogram(zero, w, ones)[:, 0],
+                       torch.full((333,), 64, dtype=torch.int32, device=cuda))
+    xb = torch.stack([x, -x])
+    mb = torch.stack([mask, mask])
+    banked = histogram_kernel.hash_histogram_banked(xb, w, mb)
+    assert torch.equal(banked, ref.hash_histogram_banked(xb, w, mb))
+    assert torch.equal(banked[0], got)
 
 
 @pytest.mark.gpu
