@@ -12,10 +12,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3. insert: ``paired_hash_histogram`` against its plain PyTorch version, bit
    for bit, at the main path's full shape, at ragged shapes (d in {1, 3, 4,
    5, 10, 13, 16, 17, 31, 32}, p from 1 to 8, n in {0, 31, 33} and n % 32
-   != 0, partial masks), with integer-weighted masks (values 0-3 in some
-   tiles only) and with int16/int8 outputs that saturate.
+   != 0, partial masks), on the wide body (d in {33, 40, 64, 515, 4096},
+   p = 9), with integer-weighted masks (values 0-3 in some tiles only) and
+   with int16/int8 outputs that saturate.
 4. query: ``sketch_query`` against its plain version, bit for bit, on the
-   full-size sketch for m in {17, 198, 4096, 1001}.
+   full-size sketch for m in {17, 198, 4096, 1001, 0, 1, 272, 512}, then on
+   random counters (negative ones too) at R in {1, 33, 2048}, p in {1, 4, 9,
+   16} and m in {1, 17, 1001}, int32, int16 and int8, one call after
+   another (each leaves the kernel's workspace zeroed for the next).
 5. fit: ``regression.fit`` at the full configuration (n = 2^22 rows at the
    airfoil-matched widths d = 9, R = 2048, p = 4, 400 DFO steps + 1 refine)
    through the kernels, with the launch counts of that run; then the same fit
@@ -26,20 +30,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    d = 9 features, augmented to 11 columns, R = 1024, p = 2), at ragged
    shapes (d in {1, 3, 4, 5, 7, 11, 13, 15, 16, 17, 31, 32}, p from 1 to 8,
    n in {0, 31, 33} and n % 32 != 0, partial masks, one launch per
-   non-empty stream), with integer-weighted masks (values 0-3 in some tiles
-   only), on rows that are not augmented (exact +0.0 and -0.0 entries,
-   all-zero rows), on views that are not 16-byte aligned, and with
-   int16/int8 outputs that saturate.
+   non-empty stream), on the wide body (d in {35, 42, 64, 70, 515, 4096},
+   p = 9), with integer-weighted masks (values 0-3 in some tiles only), on
+   rows that are not augmented (exact +0.0 and -0.0 entries, all-zero
+   rows), on views that are not 16-byte aligned, and with int16/int8
+   outputs that saturate.
 7. banked inserts: ``sketch_dataset_many(engine="kernel")``, paired
    (R = 2048, p = 4) and single-sided (R = 1024, p = 2), over 16 tenants of
    2^18 rows (the last 1000 short), with the launch counts of that build;
    each slice against the lone kernel on that tenant and the whole bank
    against the plain banked version, bit for bit; then, paired and
    single-sided, a gateway-shaped bank (16 tenants x 4096 slots, about half
-   masked, interleaved) and an integer-weighted one, the same way.
+   masked, interleaved) and an integer-weighted one, the same way; then
+   wide banks (paired d = 40, p = 9 and d = 515, p = 4; single-sided
+   d = 66, p = 4).
 8. banked query: ``sketch_query_banked`` against its plain version, bit for
-   bit, on the 16-tenant bank for m in {272, 16, 32, 3168, 4096}, and on its
-   int16 and int8 copies.
+   bit, on the 16-tenant bank for m in {272, 16, 32, 3168, 4096, 0, 1, 17,
+   512}, on its int16 and int8 copies, and on random 3-table banks at R in
+   {1, 33, 2048}, p in {1, 9, 16} and m in {17, 1001}.
 9. classification: ``classification.fit`` on ``make_classification(2^22,
    9, margin 0.5)`` with R = 1024, p = 2 and 300 DFO steps, through the
    kernels (with its launch counts) and through the plain versions on the
@@ -55,7 +63,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
     kernels and its plain version at the shapes above, beside the least time
     the card could take (the four inserts, kernels 1, 3, 4 and 5, over three
     profiler runs: min, median and max, and every kernel record); kernel 3
-    at the kmeans shape (d = 11, p = 4) on its own line; where the
+    at the kmeans shape (d = 11, p = 4) on its own line; both queries at
+    m in {17, 272, 512, 4096} and both inserts on the wide body (d = 515,
+    n = 2^16, R = 2048, p = 4), each beside its bound; where the
     time of the three fits goes; the gateway's ticks/s, points/s and rows/s,
     synchronous and pipelined, its tick latency (p50, p99) and, under the
     profiler, the device's busy share and the insert's and query's device
@@ -80,6 +90,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
 14. tiered gateway: 64 tenants over 16 resident int16 slots under Zipf(1.1)
     tenant traffic; the final sketches against a flat 64-tenant int16
     gateway's, the pipelined loop against the synchronous one.
+15. wide fit: ``regression.fit`` at d = 40 (2^20 rows, R = 4096, 400 DFO
+    steps of k = 32 at sigma 0.15 and learning rate 0.25) through the wide
+    insert and the queries' generic body, with the launch counts of that
+    run, and through the kernels' plain versions (the same fit bit for bit);
+    its train MSE and R^2 are printed.
 
 The last two lines are the card (nvidia-smi's name and power limit) and
 ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
@@ -119,6 +134,17 @@ CLS_ROWS, CLS_PLANES, KMEANS_PLANES = 1024, 2, 4
 # The banked path: 16 tenants' streams of 2^18 rows (2^22 in all), the last
 # one short, each its own airfoil-matched draw.
 TENANTS, TENANT_ROWS, TENANT_SHORT = 16, 1 << 18, 1000
+
+# A wide fit: 40 features (41 paired columns, past the narrow inserts' 32),
+# a million rows. In 41 dimensions the default DFO steps (sigma 0.5,
+# learning rate 2) overshoot, so smaller steps over more query points and
+# rows. Even so the fit's quality depends on the draw, so the phase holds
+# the kernel fit to the plain-version fit bit for bit and reports R^2.
+WIDE_ROWS, WIDE_FEATURES, WIDE_NOISE = 1 << 20, 40, 0.2
+WIDE_HASH_ROWS, WIDE_STEPS, WIDE_K = 4096, 400, 32
+WIDE_SIGMA, WIDE_LR = 0.15, 0.25
+# The wide inserts' timing shape (phase 11).
+WIDE_TIME_ROWS, WIDE_TIME_D = 1 << 16, 515
 
 
 # Kernel 7 (srp_hash) on its own entry point: the regression family's hash
@@ -495,6 +521,11 @@ def main() -> int:
                 _log(f"[build] {path.stem}: {line.strip()}")
 
     gen = generator(SEED, dev)
+    # A second stream for the wide-body, p > 8 and query-shape cases and the
+    # wide fit, so that adding cases leaves every other phase's draws as
+    # they were: the fits' quality checks hold chaotic DFO fits to fixed
+    # draws.
+    extra = generator(SEED + 1, dev)
     cfg = regression.StormRegressorConfig()
     x, y, _ = datasets.make_regression(gen, N_ROWS, D_FEATURES, NOISE,
                                        CONDITION)
@@ -534,14 +565,14 @@ def main() -> int:
                                  f"version at {label}")
         return got
 
-    def weighted_mask(lead, keep):
+    def weighted_mask(lead, keep, g=gen):
         """A 0/1 mask (``keep`` valid, interleaved) whose every third
         256-slot tile carries integer weights 0-3: weighted and binary tiles
         meet in one launch."""
-        mi = (torch.rand(lead, generator=gen, device=dev) < keep).float()
+        mi = (torch.rand(lead, generator=g, device=dev) < keep).float()
         for start in range(256, lead[-1], 768):
             mi[..., start:start + 256] = torch.randint(
-                0, 4, mi[..., start:start + 256].shape, generator=gen,
+                0, 4, mi[..., start:start + 256].shape, generator=g,
                 device=dev).float()
         return mi
 
@@ -570,30 +601,63 @@ def main() -> int:
         ("int16 saturating weighted", 100_003, 10, 1, 64, 0.5, torch.int16),
         ("int8 saturating weighted", 50_001, 10, 4, 64, 0.5, torch.int8),
         ("int8 saturating weighted", 50_001, 17, 8, 64, 0.5, torch.int8),
+        ("wide", 100_003, 33, 4, 2048, 0.9, torch.int32),
+        ("wide", 50_001, 64, 8, 300, 0.5, torch.int32),
+        ("wide", 20_001, 515, 9, 257, 0.7, torch.int32),
+        ("wide", 3_001, 4096, 4, 100, 0.8, torch.int32),
+        ("p=9", 50_001, 10, 9, 513, 0.7, torch.int32),
+        ("wide weighted", 50_001, 40, 9, 64, 0.5, torch.int32),
+        ("wide int16 saturating", 100_003, 33, 1, 50, 1.0, torch.int16),
+        ("wide int8 saturating weighted", 100_003, 64, 1, 64, 0.5,
+         torch.int8),
     ):
-        zi = torch.randn(n, d, generator=gen, device=dev)
+        g = extra if "wide" in label or p > 8 else gen
+        zi = torch.randn(n, d, generator=g, device=dev)
         if n:
             zi, _ = lsh.scale_to_unit_ball(zi)
-        wi = torch.randn(p, d + 2, r, generator=gen, device=dev)
-        mi = (weighted_mask((n,), keep) if "weighted" in label else
-              (torch.rand(n, generator=gen, device=dev) < keep).float())
+        wi = torch.randn(p, d + 2, r, generator=g, device=dev)
+        mi = (weighted_mask((n,), keep, g) if "weighted" in label else
+              (torch.rand(n, generator=g, device=dev) < keep).float())
         got = check_insert(label, zi.contiguous(), wi, mi, out_dtype)
         if "saturating" in label and int(got.max()) != torch.iinfo(out_dtype).max:
             raise AssertionError(f"{label} did not saturate")
 
     # -- 4. query kernel against its plain version ------------------------------
-    for m in (17, 198, 4096, 1001):
-        th = torch.randn(m, dim - 2, generator=gen, device=dev)
-        q = lsh.augment_query(lsh.normalize_query(th)).contiguous()
-        got = query_kernel.sketch_query(q, w, full_counts)
-        want = ref.sketch_query(q, w, full_counts)
+    def check_query(label, got, want):
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        errs["sketch_query"] = max(errs["sketch_query"], err)
-        _log(f"[query] m={m}: max|err|={err:g}")
-        if not torch.equal(got, want):
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        name = "sketch_query_banked" if "banked" in label else "sketch_query"
+        errs[name] = max(errs[name], err)
+        _log(f"[query] {label}: max|err|={err:g}")
+        if not (got.shape == want.shape and torch.equal(got, want)):
             raise AssertionError(f"query kernel differs from its plain "
-                                 f"version at m={m}")
+                                 f"version at {label}")
+
+    def random_counts(lead, rows_q, p_q, dtype):
+        hi = min(torch.iinfo(dtype).max, 1 << 20)
+        return torch.randint(-hi, hi, lead + (rows_q, 1 << p_q),
+                             generator=extra, device=dev,
+                             dtype=torch.int32).to(dtype)
+
+    dtypes = (torch.int32, torch.int16, torch.int8)
+    for m, g in ((17, gen), (198, gen), (4096, gen), (1001, gen), (0, extra),
+                 (1, extra), (272, extra), (512, extra)):
+        th = torch.randn(m, dim - 2, generator=g, device=dev)
+        q = lsh.augment_query(lsh.normalize_query(th)).contiguous()
+        check_query(f"m={m}", query_kernel.sketch_query(q, w, full_counts),
+                    ref.sketch_query(q, w, full_counts))
+    # Row slices (R = 1, 33, 2048), the staged body (p <= 8) and the generic
+    # one (p > 8), narrow and negative counters, calls of different m in a
+    # row.
+    for i, (rows_q, p_q, m) in enumerate(itertools.product(
+            (1, 33, 2048), (1, 4, 9, 16), (1, 17, 1001))):
+        dtype = dtypes[i % 3]
+        wq = torch.randn(p_q, dim, rows_q, generator=extra, device=dev)
+        cq = random_counts((), rows_q, p_q, dtype)
+        q = torch.randn(m, dim, generator=extra, device=dev)
+        check_query(f"m={m} R={rows_q} p={p_q} {dtype}",
+                    query_kernel.sketch_query(q, wq, cq),
+                    ref.sketch_query(q, wq, cq))
 
     # -- 5. end-to-end fit ------------------------------------------------------
     k, steps = cfg.dfo.num_queries, cfg.dfo.steps
@@ -681,13 +745,13 @@ def main() -> int:
     wc = ops.from_lsh_params(cparams)  # (p, d + 2, R)
     check_single("full", xa, wc, ones, torch.int32)
 
-    def generic_rows(n, d):
+    def generic_rows(n, d, g=gen):
         """Rows that are not augmented: about a tenth of the entries +0.0
         and a tenth -0.0, every 97th row all zeros (+0.0 or -0.0), so that a
         kernel which skipped a column or assumed the augmented layout would
         differ."""
-        xi = torch.randn(n, d, generator=gen, device=dev)
-        u = torch.rand(n, d, generator=gen, device=dev)
+        xi = torch.randn(n, d, generator=g, device=dev)
+        u = torch.rand(n, d, generator=g, device=dev)
         xi = torch.where(u < 0.1, torch.zeros_like(xi), xi)
         xi = torch.where((u >= 0.1) & (u < 0.2), -torch.zeros_like(xi), xi)
         xi[::97] = 0.0
@@ -729,20 +793,29 @@ def main() -> int:
         ("int16", 30_000, 11, 2, 1024, 0.8, torch.int16),
         ("int8 saturating", 50_001, 3, 2, 64, 1.0, torch.int8),
         ("int8 saturating weighted", 50_001, 11, 2, 64, 0.5, torch.int8),
+        ("wide", 100_003, 35, 4, 1024, 0.9, torch.int32),
+        ("wide", 50_001, 64, 2, 300, 0.5, torch.int32),
+        ("wide", 20_001, 515, 9, 257, 0.7, torch.int32),
+        ("wide", 3_001, 4096, 4, 100, 0.8, torch.int32),
+        ("p=9", 50_001, 11, 9, 513, 0.7, torch.int32),
+        ("wide weighted", 50_001, 42, 9, 64, 0.5, torch.int32),
+        ("wide generic", 20_001, 70, 4, 300, 0.9, torch.int32),
+        ("wide int8 saturating", 50_001, 64, 2, 64, 1.0, torch.int8),
     ):
+        g = extra if "wide" in label or p > 8 else gen
         if "generic" in label or d < 3:
-            xi = generic_rows(n, d)
+            xi = generic_rows(n, d, g)
         else:
-            zi = torch.randn(n, d - 2, generator=gen, device=dev)
+            zi = torch.randn(n, d - 2, generator=g, device=dev)
             if n:
                 zi = lsh.scale_to_unit_ball(zi)[0]
             xi = lsh.augment_data(zi).contiguous()
         if "unaligned" in label:
             xi = unaligned(xi, 1)
             assert xi.is_contiguous() and xi.data_ptr() % 16
-        wi = torch.randn(p, d, r, generator=gen, device=dev)
-        mi = (weighted_mask((n,), keep) if "weighted" in label else
-              (torch.rand(n, generator=gen, device=dev) < keep).float())
+        wi = torch.randn(p, d, r, generator=g, device=dev)
+        mi = (weighted_mask((n,), keep, g) if "weighted" in label else
+              (torch.rand(n, generator=g, device=dev) < keep).float())
         before = insert_kernel.hash_histogram.launches
         got = check_single(label, xi, wi, mi, out_dtype)
         if insert_kernel.hash_histogram.launches != before + (n > 0):
@@ -856,6 +929,44 @@ def main() -> int:
             raise AssertionError(f"the {label} {kind} bank differs from its "
                                  f"plain version or from the lone kernel")
 
+    # Wide banks: the wide body's banked launch, paired and single-sided.
+    for paired, width, p_w, r_w in ((True, 40, 9, 512), (True, 515, 4, 300),
+                                    (False, 66, 4, 512)):
+        if paired:
+            name = "paired_hash_histogram_banked"
+            banked = insert_kernel.paired_hash_histogram_banked
+            lone = insert_kernel.paired_hash_histogram
+            plain = ref.paired_hash_histogram_banked
+            zg = torch.stack([lsh.scale_to_unit_ball(torch.randn(
+                GW_INGEST_SLOTS, width, generator=extra, device=dev))[0]
+                for _ in range(4)]).contiguous()
+            wg = torch.randn(p_w, width + 2, r_w, generator=extra,
+                             device=dev)
+        else:
+            name = "hash_histogram_banked"
+            banked = insert_kernel.hash_histogram_banked
+            lone = insert_kernel.hash_histogram
+            plain = ref.hash_histogram_banked
+            zg = lsh.augment_data(torch.stack([lsh.scale_to_unit_ball(
+                torch.randn(GW_INGEST_SLOTS, width - 2, generator=extra,
+                            device=dev))[0] for _ in range(4)])).contiguous()
+            wg = torch.randn(p_w, width, r_w, generator=extra, device=dev)
+        mg = weighted_mask((4, GW_INGEST_SLOTS), 0.5, extra)
+        got = banked(zg, wg, mg)
+        want = plain(zg, wg, mg)
+        torch.cuda.synchronize()
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        errs[name] = max(errs[name], err)
+        slices_equal = all(torch.equal(got[i], lone(zg[i], wg, mg[i]))
+                           for i in range(4))
+        _log(f"[bank] wide {'paired' if paired else 'single-sided'} bank: "
+             f"S=4 slots={GW_INGEST_SLOTS} d={width} p={p_w} R={r_w}, "
+             f"weighted; max|err| vs plain={err:g}; slices equal the lone "
+             f"kernel: {slices_equal}")
+        if not (torch.equal(got, want) and slices_equal):
+            raise AssertionError(f"the wide bank (d={width}, p={p_w}) differs "
+                                 f"from its plain version or the lone kernel")
+
     # -- 8. banked query against its plain version -------------------------------
     bank = banks[True]
     member_major = torch.repeat_interleave(
@@ -872,15 +983,29 @@ def main() -> int:
                torch.randint(0, TENANTS, (m_q,), generator=gen, device=dev,
                              dtype=torch.int32))
         cnt = sketch_lib.saturating_cast(bank.counts, dtype)
-        got = query_kernel.sketch_query_banked(q, w, cnt, idx)
-        want = ref.sketch_query_banked(q, w, cnt, idx)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        errs["sketch_query_banked"] = max(errs["sketch_query_banked"], err)
-        _log(f"[bquery] m={m_q} {dtype}: max|err|={err:g}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"banked query kernel differs from its "
-                                 f"plain version at m={m_q}, {dtype}")
+        check_query(f"banked m={m_q} {dtype}",
+                    query_kernel.sketch_query_banked(q, w, cnt, idx),
+                    ref.sketch_query_banked(q, w, cnt, idx))
+    for m_q, dtype in ((0, torch.int32), (1, torch.int32), (17, torch.int16),
+                       (TENANTS * GW_QUERY_SLOTS, torch.int32)):
+        th = torch.randn(m_q, dim - 2, generator=extra, device=dev)
+        q = lsh.augment_query(lsh.normalize_query(th)).contiguous()
+        idx = torch.randint(0, TENANTS, (m_q,), generator=extra, device=dev,
+                            dtype=torch.int32)
+        cnt = sketch_lib.saturating_cast(bank.counts, dtype)
+        check_query(f"banked m={m_q} {dtype}",
+                    query_kernel.sketch_query_banked(q, w, cnt, idx),
+                    ref.sketch_query_banked(q, w, cnt, idx))
+    for i, (rows_q, p_q, m_q) in enumerate(itertools.product(
+            (1, 33, 2048), (1, 9, 16), (17, 1001))):
+        dtype = dtypes[i % 3]
+        wq = torch.randn(p_q, dim, rows_q, generator=extra, device=dev)
+        cq = random_counts((3,), rows_q, p_q, dtype)
+        q = torch.randn(m_q, dim, generator=extra, device=dev)
+        idx = torch.randint(0, 3, (m_q,), generator=extra, device=dev)
+        check_query(f"banked m={m_q} R={rows_q} p={p_q} {dtype}",
+                    query_kernel.sketch_query_banked(q, wq, cq, idx),
+                    ref.sketch_query_banked(q, wq, cq, idx))
 
     # -- 9. classification fit, then logistic and kmeans -------------------------
     csteps = ccfg.dfo.steps
@@ -1264,6 +1389,58 @@ def main() -> int:
          f"{gt.trace_count}; tick_start ran under sync debug mode 'error'")
     del gt, gtp, flat64
 
+    # -- 15. a wide regression fit: d = 40 through the wide insert -------------
+    xw, yw, _ = datasets.make_regression(extra, WIDE_ROWS, WIDE_FEATURES,
+                                         WIDE_NOISE)
+    wide_dim = WIDE_FEATURES + 3  # [x, y] augmented
+    wcfg = regression.StormRegressorConfig(
+        rows=WIDE_HASH_ROWS,
+        dfo=dfo.DFOConfig(steps=WIDE_STEPS, num_queries=WIDE_K,
+                          sigma=WIDE_SIGMA, sigma_decay=0.995,
+                          learning_rate=WIDE_LR, decay=0.995,
+                          average_tail=0.5))
+    wide_draws = dict(
+        params=lsh.init_srp(extra, WIDE_HASH_ROWS, wcfg.planes, wide_dim,
+                            device=dev),
+        directions=dfo.sphere_directions(extra, WIDE_STEPS, 1, WIDE_K,
+                                         WIDE_FEATURES + 1, dev),
+        refine_samples=torch.randn(
+            wcfg.refine_steps, 1, dfo.refine_sample_count(WIDE_FEATURES + 1),
+            WIDE_FEATURES + 1, generator=extra, device=dev))
+
+    def run_wide():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fit = regression.fit(extra, xw, yw, wcfg, device=dev, **wide_draws)
+        torch.cuda.synchronize()
+        return fit, time.perf_counter() - start
+
+    run_wide()  # warm-up
+    for c in counters.values():
+        c.launches = 0
+    wide_kernel, wide_s = run_wide()
+    wide_launches = {name: c.launches for name, c in counters.items()}
+    with plain_versions():
+        wide_plain, wide_plain_s = run_wide()
+    var_w = float(yw.var(correction=0))
+    mse_w = float(wide_kernel.mse(xw, yw))
+    wide_expected = WIDE_STEPS + 2 * wcfg.refine_steps + 1
+    _log(f"[wide] regression.fit n={WIDE_ROWS} d={WIDE_FEATURES} "
+         f"R={WIDE_HASH_ROWS}: kernel {wide_s:.3f} s, plain versions "
+         f"{wide_plain_s:.3f} s; train MSE {mse_w:.6f} (var(y) {var_w:.6f}, "
+         f"R^2 {1 - mse_w / var_w:.6f}); launches {wide_launches}")
+    if (wide_launches["paired_hash_histogram"] != 1
+            or wide_launches["sketch_query"] != wide_expected
+            or sum(wide_launches.values()) != 1 + wide_expected):
+        raise AssertionError(f"the wide fit made {wide_launches}")
+    if not torch.equal(wide_kernel.theta, wide_plain.theta):
+        raise AssertionError("the wide kernel fit differs from the same fit "
+                             "through the kernels' plain versions")
+    if not (torch.isfinite(wide_kernel.theta).all()
+            and wide_kernel.theta.shape == (WIDE_FEATURES,)):
+        raise AssertionError(f"the wide fit gave {wide_kernel.theta}")
+    del xw, yw
+
     # -- 11. timings ------------------------------------------------------------
     # "ms" is device time per launch from torch.profiler (CUPTI); where the
     # profiler records no device activity it is the CUDA-event time per call,
@@ -1388,6 +1565,71 @@ def main() -> int:
          f"{kmeans_ms} ms per launch, {kmeans_wall:.4f} ms per call by "
          f"CUDA events; bound {kmeans_bound:.4f} ms by "
          f"{kmeans_by}")
+
+    # Both queries at m in {17, 272, 512, 4096} (one DFO step, a 16-tenant
+    # fleet's step, the gateway's 512 slots, a large batch), each beside its
+    # bound; the banked query reads the 16-tenant bank, slot-major at 272
+    # and 512 as the fleet and the gateway send it.
+    for m_t in (17, 272, 512, 4096):
+        th_t = torch.randn(m_t, dim - 2, generator=extra, device=dev)
+        q_t = lsh.augment_query(lsh.normalize_query(th_t)).contiguous()
+        per = m_t // TENANTS
+        idx_t = (torch.repeat_interleave(torch.arange(
+            TENANTS, dtype=torch.int32, device=dev), per)
+            if per * TENANTS == m_t else torch.randint(
+                0, TENANTS, (m_t,), generator=extra, device=dev,
+                dtype=torch.int32))
+        for name, fn, table in (
+            ("sketch_query", lambda q_t=q_t: query_kernel.sketch_query(
+                q_t, w, counts), counts),
+            ("sketch_query_banked",
+             lambda q_t=q_t, idx_t=idx_t: query_kernel.sketch_query_banked(
+                 q_t, w, bcounts, idx_t), bcounts),
+        ):
+            q_ms = _device_ms(fn, 200, torch, "sketch_query_kernel")
+            q_bound, q_by = _bound(
+                bytes_moved=4 * (q_t.numel() + w.numel() + m_t
+                                 + (m_t if table is bcounts else 0)
+                                 + min(m_t * rows, table.numel())),
+                flops=2.0 * m_t * d_aug * rows * p)
+            _log(f"[time] {name} at m={m_t}: device {q_ms} ms per launch; "
+                 f"bound {q_bound:.6f} ms by {q_by}")
+
+    # Both inserts on the wide body: d = 515 (paired: 517 columns of w),
+    # n = 2^16, R = 2048, p = 4, beside their bounds and plain versions.
+    wide_z = lsh.scale_to_unit_ball(torch.randn(
+        WIDE_TIME_ROWS, WIDE_TIME_D, generator=extra, device=dev))[0]
+    wide_x = lsh.augment_data(wide_z[:, :WIDE_TIME_D - 2]).contiguous()
+    wide_ones = torch.ones(WIDE_TIME_ROWS, device=dev)
+    wide_w = torch.randn(p, WIDE_TIME_D + 2, rows, generator=extra,
+                         device=dev)
+    for name, kern, plain, wi, xi in (
+        ("paired_hash_histogram", insert_kernel.paired_hash_histogram,
+         ref.paired_hash_histogram, wide_w, wide_z),
+        ("hash_histogram", insert_kernel.hash_histogram, ref.hash_histogram,
+         wide_w[:, :WIDE_TIME_D].contiguous(), wide_x),
+    ):
+        def wide_insert(kern=kern, xi=xi, wi=wi):
+            return kern(xi, wi, wide_ones)
+
+        # The profiler drops records of these long kernels (a whole run's,
+        # once), so the CUDA-event time of the call (allocation and launch
+        # included) stands beside it.
+        wide_event = _median_ms(wide_insert, 3, torch)
+        wide_ms = spread_ms(f"{name} on the wide body", wide_insert, 3,
+                            "wide_hist_kernel")
+        wide_plain_ms = _device_ms(lambda plain=plain, xi=xi, wi=wi: plain(
+            xi, wi, wide_ones), 1, torch)
+        wide_bound, wide_by = _bound(
+            bytes_moved=4 * (xi.numel() + WIDE_TIME_ROWS + wi.numel()
+                             + rows * (1 << p)),
+            flops=2.0 * WIDE_TIME_ROWS * wi.shape[1] * rows * p)
+        _log(f"[time] {name} on the wide body (n={WIDE_TIME_ROWS} "
+             f"d={xi.shape[1]} p={p} R={rows}): device {wide_ms} ms per "
+             f"launch, {wide_event:.4f} ms per call by CUDA events; plain "
+             f"version {wide_plain_ms} ms; bound {wide_bound:.4f} ms by "
+             f"{wide_by}")
+    del wide_z, wide_x, wide_w
 
     # Where each fit's time goes: device busy time under the profiler.
     _fit_profile("fit", lambda: run_fit("auto"), torch,

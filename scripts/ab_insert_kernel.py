@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the insert kernels, the lone query and the SRP hash of one or more
+"""Time the insert kernels, both queries and the SRP hash of one or more
 checkouts of the PyTorch/CUDA port, each in a fresh process, on one card.
 
     python3 scripts/ab_insert_kernel.py TREE [TREE ...]
@@ -11,7 +11,10 @@ builds that checkout's kernels and times, on the same seeded inputs:
 * kernel 1, ``paired_hash_histogram`` (n = 2^22 rows, d = 10, R = 2048,
   p = 4: the regression path), and kernel 4, its banked form (16 tenants of
   2^18 rows, the last 1000 short, under the same hash family);
-* kernel 2, ``sketch_query`` (m = 17, one DFO step);
+* kernel 2, ``sketch_query``, and kernel 6, ``sketch_query_banked`` on
+  the 16-tenant bank above, at m in {17, 272, 512, 4096} (one DFO step, a
+  16-tenant fleet's step, the gateway's 16 x 32 query slots, a large
+  batch; the banked index slot-major where m is a multiple of 16);
 * kernel 3, ``hash_histogram`` at the classification path's shape (n = 2^22
   augmented rows of d = 11, R = 1024, p = 2) and at the kmeans shape
   (p = 4), and kernel 5, its banked form (16 tenants of 2^18 rows, the last
@@ -20,12 +23,14 @@ builds that checkout's kernels and times, on the same seeded inputs:
 
 For each: device time per launch from torch.profiler (the mean over the
 kernel records it kept, with their count: the profiler has been seen to drop
-a record of these kernels) and the median CUDA-event time per call. While
+a record of these kernels) and the median CUDA-event time per call (the
+queries' keys carry their m: ``query_m272_device_ms``). While
 a queue of each lone insert (kernels 1 and 3) runs, it reads the SM clock
 three times with nvidia-smi (``*_sm_clock_mhz``; ``*_clock_sampled_busy``
 says the card was still running them after the last reading). Each
 output's sum (``*_sum``) and its sum weighted by the last axis's index
-(``*_bucket_sum``) show that both trees counted the same cells. It prints
+(``*_bucket_sum``) show that both trees counted the same cells, and each
+query's output sum (``query*_sum``) that they answered the same. It prints
 one JSON line per run. To compare two commits on one card, give them
 in alternating order (A B B A). Needs a CUDA card.
 """
@@ -38,7 +43,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-N_ROWS, D, ROWS, PLANES, M = 1 << 22, 10, 2048, 4, 17
+N_ROWS, D, ROWS, PLANES = 1 << 22, 10, 2048, 4
+QUERY_M = (17, 272, 512, 4096)
 TENANTS, TENANT_ROWS, TENANT_SHORT = 16, 1 << 18, 1000
 # The single-sided family: d = 9 features augmented to 11 columns.
 S_D, S_ROWS, S_PLANES, KMEANS_PLANES = 11, 1024, 2, 4
@@ -79,8 +85,17 @@ def _child(tree: Path) -> dict:
     mb = torch.ones(TENANTS, TENANT_ROWS, device=dev)
     mb[-1, TENANT_ROWS - TENANT_SHORT:] = 0
     bank = insert_kernel.paired_hash_histogram_banked(zb, w, mb)
-    q = lsh.augment_query(lsh.normalize_query(
-        torch.randn(M, D, generator=gen, device=dev))).contiguous()
+    queries = {}
+    for m in QUERY_M:
+        q = lsh.augment_query(lsh.normalize_query(
+            torch.randn(m, D, generator=gen, device=dev))).contiguous()
+        per = m // TENANTS
+        idx = (torch.repeat_interleave(torch.arange(
+            TENANTS, dtype=torch.int32, device=dev), per)
+            if per * TENANTS == m else torch.randint(
+                0, TENANTS, (m,), generator=gen, device=dev,
+                dtype=torch.int32))
+        queries[m] = (q, idx)
     x = lsh.augment_data(unit_ball(N_ROWS, S_D - 2)).contiguous()
     ws = torch.randn(S_PLANES, S_D, S_ROWS, generator=gen, device=dev)
     wk = torch.randn(KMEANS_PLANES, S_D, S_ROWS, generator=gen, device=dev)
@@ -136,8 +151,6 @@ def _child(tree: Path) -> dict:
         ("insert", insert, 5, "paired_hist_kernel"),
         ("banked", lambda: insert_kernel.paired_hash_histogram_banked(
             zb, w, mb), 5, "paired_hist_kernel"),
-        ("query", lambda: query_kernel.sketch_query(q, w, counts), 200,
-         "sketch_query_kernel"),
         ("single", single, 5, "hist_kernel"),
         ("single_p4", lambda: insert_kernel.hash_histogram(x, wk, mask), 5,
          "hist_kernel"),
@@ -145,6 +158,12 @@ def _child(tree: Path) -> dict:
             xb, ws, mb), 5, "hist_kernel"),
         ("srp", lambda: hash_kernel.srp_hash(xh, w), 20,
          "srp_hash_reg_kernel"),
+        *[(f"query_m{m}", lambda q=q: query_kernel.sketch_query(q, w, counts),
+           200, "sketch_query_kernel") for m, (q, _) in queries.items()],
+        *[(f"query_banked_m{m}",
+           lambda q=q, idx=idx: query_kernel.sketch_query_banked(
+               q, w, bank, idx, index_checked=True),
+           200, "sketch_query_kernel") for m, (q, idx) in queries.items()],
     ):
         event_ms, dev_ms, n = timed(fn, reps, symbol)
         out.update({f"{key}_device_ms": dev_ms, f"{key}_event_ms": event_ms,
@@ -168,6 +187,11 @@ def _child(tree: Path) -> dict:
         out[f"{key}_sum"] = int(t.sum())
         out[f"{key}_bucket_sum"] = int(
             (t * torch.arange(t.shape[-1], device=dev)).sum())
+    for m, (q, idx) in queries.items():
+        out[f"query_m{m}_sum"] = float(query_kernel.sketch_query(
+            q, w, counts).double().sum())
+        out[f"query_banked_m{m}_sum"] = float(query_kernel.sketch_query_banked(
+            q, w, bank, idx).double().sum())
     return out
 
 

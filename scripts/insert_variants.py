@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Build variants of the two insert kernels and compare them on one card.
+"""Build variants of the insert and query kernels and compare them on one card.
 
-    python3 scripts/insert_variants.py [--parent TREE]
+    python3 scripts/insert_variants.py [--parent TREE] [--family NAME ...]
 
 Each variant is a copy of an insert source in ``src/repro_torch/kernels/csrc``
 with at most one of its constants rewritten, compiled by ``nvcc`` with the
@@ -20,9 +20,16 @@ The single-sided insert (``hash_histogram.cu``, kernels 3 and 5):
                       skipped): hash rows per thread at d = 11, p <= 2
     single wide=N     kRowsWide = N (N = 1, 2): rows per thread at p = 3, 4
 
-``--parent TREE`` adds both insert sources of another checkout (the parent
-commit, unpacked by ``git archive``) as ``paired parent`` and ``single
-parent``.
+The RACE query (``sketch_query.cu``, kernels 2 and 6):
+
+    query             the source as the package builds it
+    query min_rows=N  kMinRows = N (4, 16, 32): the fewest rows of a slice
+    query blocks=N    kBlocksPerSm = N (8, 16): the grid's target per SM
+    query tile=N      kMaxTile = N (64, 256): points per block
+
+``--parent TREE`` adds the sources of another checkout (the parent commit,
+unpacked by ``git archive``) as ``paired parent``, ``single parent`` and
+``query parent``. ``--family`` picks families (default: all three).
 
 For every variant it prints one JSON line with:
 
@@ -46,6 +53,12 @@ For every variant it prints one JSON line with:
   p = 2 (``lone_ms``), the banked insert over 16 tenants of 2^18 rows at
   p = 2 (``banked_ms``) and the lone insert at p = 4 (``lone_p4_ms``);
 * ``equal``: whether each of its outputs equals its family's default build's.
+
+A query variant prints, instead of ``sass`` and the insert times, the device
+time per launch (``torch.profiler``, the mean over 200 launches' records)
+of the lone and the banked query at m in {17, 272, 512, 4096} on a
+16-table bank at p = 4, d = 12, R = 2048 (``lone_us``, ``banked_us``; the
+banked index slot-major where m is a multiple of 16).
 
 The copies and their libraries go to
 ``src/repro_torch/kernels/_build/variants/``. Needs a CUDA card and ``nvcc``.
@@ -103,6 +116,13 @@ FAMILIES = {
                           "hist_kernelILi2ELi16ELb1E",
                           "hist_kernelILi4ELi16ELb0E")}),
 }
+QUERY = dict(
+    source="sketch_query.cu",
+    variants={"min_rows=4": ("kMinRows", 4), "min_rows=16": ("kMinRows", 16),
+              "min_rows=32": ("kMinRows", 32),
+              "blocks=8": ("kBlocksPerSm", 8), "blocks=16": ("kBlocksPerSm", 16),
+              "tile=64": ("kMaxTile", 64), "tile=256": ("kMaxTile", 256)},
+    stem="sketch_query_kernelILi4ELi12ELb0E", m=(17, 272, 512, 4096))
 INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)"
                   r"([^;]*);")
 
@@ -201,6 +221,9 @@ def hot_loop_mix(lib, stem, planes, compares):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--family", nargs="+", default=["paired", "single",
+                                                    "query"],
+                    choices=["paired", "single", "query"])
     args = ap.parse_args()
 
     import torch
@@ -219,7 +242,10 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     # name -> (family, source, "new" or "parent")
     jobs = {}
-    for fam, spec in FAMILIES.items():
+    families = {f: s for f, s in FAMILIES.items() if f in args.family}
+    if "query" in args.family:
+        families["query"] = QUERY
+    for fam, spec in families.items():
         src = _build.CSRC / spec["source"]
         jobs[fam] = (fam, src, "new")
         for label, constant in spec["variants"].items():
@@ -242,8 +268,14 @@ def main() -> int:
         return lsh.scale_to_unit_ball(
             torch.randn(n, d, generator=gen, device=dev))[0].contiguous()
 
+    if "query" in args.family:
+        time_queries({n: built[n] for n in jobs if jobs[n][0] == "query"},
+                     {n: jobs[n] for n in jobs if jobs[n][0] == "query"},
+                     torch, gen)
     inputs = {}
     for fam, spec in FAMILIES.items():
+        if fam not in args.family:
+            continue
         d, d_w, rows, planes = (spec[k] for k in ("d", "d_w", "rows",
                                                   "planes"))
         # The paired insert takes z; the single-sided one augmented rows.
@@ -278,6 +310,8 @@ def main() -> int:
     reference = {}
     for name, (lib_path, log) in built.items():
         fam, _, tree = jobs[name]
+        if fam == "query":
+            continue
         spec, inp = FAMILIES[fam], inputs[fam]
         lib = ctypes.CDLL(str(lib_path))
         lone = getattr(lib, spec["entry"])
@@ -323,6 +357,78 @@ def main() -> int:
                                                         reference[fam])],
         }), flush=True)
     return 0
+
+
+def time_queries(built, jobs, torch, gen):
+    """One JSON line per query variant: registers, device µs per launch of
+    the lone and banked query at each m, and equality with the default."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    tables, rows, planes, d = 16, 2048, 4, 12
+    w = torch.randn(planes, d, rows, generator=gen, device=dev)
+    counts = torch.randint(0, 1 << 20, (tables, rows, 1 << planes),
+                           generator=gen, device=dev, dtype=torch.int32)
+    queries = {}
+    for m in QUERY["m"]:
+        per = m // tables
+        idx = (torch.repeat_interleave(torch.arange(
+            tables, dtype=torch.int32, device=dev), per)
+            if per * tables == m else torch.randint(
+                0, tables, (m,), generator=gen, device=dev,
+                dtype=torch.int32))
+        queries[m] = (torch.randn(m, d, generator=gen, device=dev), idx)
+    sums = torch.zeros(max(QUERY["m"]), dtype=torch.int64, device=dev)
+    tickets = torch.zeros(max(QUERY["m"]) // 32 + 1, dtype=torch.int32,
+                          device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    reference = None
+    for name, (lib_path, log) in built.items():
+        lib = ctypes.CDLL(str(lib_path))
+        parent = jobs[name][2] == "parent"  # the parent's entry points
+        lone, banked = lib.storm_sketch_query, lib.storm_sketch_query_banked
+        extra = 0 if parent else 2  # the workspace pointers
+        lone.argtypes = ([ctypes.c_void_p] * (4 + extra)
+                         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        banked.argtypes = ([ctypes.c_void_p] * (5 + extra)
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        ws = () if parent else (sums.data_ptr(), tickets.data_ptr())
+        times, outputs = {"lone_us": {}, "banked_us": {}}, []
+        for m, (q, idx) in queries.items():
+            out = torch.empty(m, device=dev)
+            for key, fn, args in (
+                ("lone_us", lone, (q.data_ptr(), w.data_ptr(),
+                                   counts.data_ptr(), out.data_ptr())),
+                ("banked_us", banked, (q.data_ptr(), w.data_ptr(),
+                                       counts.data_ptr(), idx.data_ptr(),
+                                       out.data_ptr())),
+            ):
+                def call(fn=fn, args=args, m=m):
+                    code = fn(*args, *ws, m, d, planes, rows, 4, stream)
+                    if code != 0:
+                        raise RuntimeError(f"{name}: CUDA error {code}")
+
+                call()
+                torch.cuda.synchronize()
+                outputs.append(out.clone())
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(200):
+                        call()
+                    torch.cuda.synchronize()
+                records = [e.time_range.elapsed_us() for e in prof.events()
+                           if getattr(e, "device_type", None)
+                           == DeviceType.CUDA
+                           and "sketch_query_kernel" in e.name]
+                times[key][m] = (sum(records) / len(records)
+                                 if records else None)
+        reference = reference or outputs
+        print(json.dumps({
+            "variant": name, "card": torch.cuda.get_device_name(0),
+            "ptxas": ptxas_usage(log, (QUERY["stem"],)), **times,
+            "equal": all(torch.equal(a, b)
+                         for a, b in zip(outputs, reference)),
+        }), flush=True)
 
 
 if __name__ == "__main__":

@@ -47,7 +47,9 @@
 //   * Exact width: d = 11 (margin classification, logistic and kmeans at
 //     the paper's d = 9, augmented, and the single-sided gateway) is a
 //     compile-time loop; every other d <= 32 takes a generic body over
-//     DMAX = 16 or 32 with a runtime guard.
+//     DMAX = 16 or 32 with a runtime guard. Wider rows (d > 32) and p > 8
+//     take the wide body of insert_common.cuh, which streams the features
+//     through shared memory (any d, p up to 30).
 //   * Counting off the per-pair path (p <= 5 while a row's weights fit in
 //     128 registers): per group of 32 records a thread sets bit k of word
 //     P_j when plane j of record k is positive; after the group bucket b
@@ -332,7 +334,7 @@ cudaError_t launch(const float* x, const float* w, const float* mask,
 }
 
 // The exact-width body for d = 11 at the register-counting p; a generic
-// body over DMAX = 16 or 32 for every other (d, p).
+// body over DMAX = 16 or 32 for every other d <= 32.
 template <int P>
 cudaError_t dispatch_d(const float* x, const float* w, const float* mask,
                        int32_t* hist, int n, int d, int rows, int tenants,
@@ -343,8 +345,7 @@ cudaError_t dispatch_d(const float* x, const float* w, const float* mask,
                                                  tenants, s);
   }
   if (d <= 16) return launch<P, 0, 16>(x, w, mask, hist, n, d, rows, tenants, s);
-  if (d <= 32) return launch<P, 0, 32>(x, w, mask, hist, n, d, rows, tenants, s);
-  return cudaErrorInvalidValue;
+  return launch<P, 0, 32>(x, w, mask, hist, n, d, rows, tenants, s);
 }
 
 // The insert of `tenants` stacked streams, then the epilogue.
@@ -352,7 +353,10 @@ cudaError_t insert(const float* x, const float* w, const float* mask,
                    int32_t* hist, void* out, int tenants, int n, int d, int p,
                    int rows, int out_bytes, cudaStream_t s) {
   cudaError_t err = cudaSuccess;
-  if (n > 0) {  // empty streams leave the zeroed tables as they are
+  if (n > 0 && (d > storm::kNarrowFeatures || p > storm::kNarrowPlanes)) {
+    err = storm::launch_wide<false>(x, w, mask, hist, n, d, p, rows, tenants,
+                                     s);
+  } else if (n > 0) {  // empty streams leave the zeroed tables as they are
     switch (p) {
       case 1: err = dispatch_d<1>(x, w, mask, hist, n, d, rows, tenants, s); break;
       case 2: err = dispatch_d<2>(x, w, mask, hist, n, d, rows, tenants, s); break;

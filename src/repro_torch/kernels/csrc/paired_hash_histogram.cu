@@ -42,7 +42,9 @@
 //     sum, which neither comparison sees, so the codes agree bit for bit.
 //   * Exact width: d = 10 (the regression family: kernel 1, the bank and
 //     the gateway) is a compile-time loop; other d <= 32 take a generic
-//     body over DMAX = 16 or 32 with a runtime guard.
+//     body over DMAX = 16 or 32 with a runtime guard. Wider rows (d > 32)
+//     and p > 8 take the wide body of insert_common.cuh, which streams the
+//     features through shared memory (any d, p up to 30).
 //   * Counting off the per-pair path (p <= 5 while a row's weights fit in
 //     128 registers; d = 10 takes two rows per thread at p <= 4): per group
 //     of 32 records a thread sets bit k of word P_j (N_j) when plane j of
@@ -367,7 +369,7 @@ cudaError_t launch(const float* z, const float* w, const float* mask,
 }
 
 // The exact-width body for d = 10 at the register-counting p; a generic
-// body over DMAX = 16 or 32 for every other (d, p).
+// body over DMAX = 16 or 32 for every other d <= 32.
 template <int P>
 cudaError_t dispatch_d(const float* z, const float* w, const float* mask,
                        int32_t* hist, int n, int d, int rows, int tenants,
@@ -378,8 +380,7 @@ cudaError_t dispatch_d(const float* z, const float* w, const float* mask,
                                                  tenants, s);
   }
   if (d <= 16) return launch<P, 0, 16>(z, w, mask, hist, n, d, rows, tenants, s);
-  if (d <= 32) return launch<P, 0, 32>(z, w, mask, hist, n, d, rows, tenants, s);
-  return cudaErrorInvalidValue;
+  return launch<P, 0, 32>(z, w, mask, hist, n, d, rows, tenants, s);
 }
 
 // The insert of `tenants` stacked streams, then the epilogue.
@@ -387,7 +388,10 @@ cudaError_t insert(const float* z, const float* w, const float* mask,
                    int32_t* hist, void* out, int tenants, int n, int d, int p,
                    int rows, int out_bytes, cudaStream_t s) {
   cudaError_t err = cudaSuccess;
-  if (n > 0) {  // empty streams leave the zeroed tables as they are
+  if (n > 0 && (d > storm::kNarrowFeatures || p > storm::kNarrowPlanes)) {
+    err = storm::launch_wide<true>(z, w, mask, hist, n, d, p, rows, tenants,
+                                     s);
+  } else if (n > 0) {  // empty streams leave the zeroed tables as they are
     switch (p) {
       case 1: err = dispatch_d<1>(z, w, mask, hist, n, d, rows, tenants, s); break;
       case 2: err = dispatch_d<2>(z, w, mask, hist, n, d, rows, tenants, s); break;

@@ -5,12 +5,20 @@ On CUDA tensors the wrappers launch the Hopper kernel in
 ``csrc/sketch_query.cu`` (its source note says what bounds it and how it is
 laid out); on CPU tensors they run the plain PyTorch versions in ``ref``.
 There is no fallback from one to the other.
+
+The kernel splits the R rows across blocks and adds each block's int64
+partial sums into a per-point workspace; the last block of a point tile
+writes the means and sets its part of the workspace back to zero. The
+workspace (:func:`_workspace`) is kept per device and stream and grown on
+demand, so a call makes one launch and no other CUDA operation.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, Tuple
+
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -20,17 +28,38 @@ Tensor = torch.Tensor
 _COUNT_BYTES = {torch.int32: 4, torch.int16: 2, torch.int8: 1}
 MAX_PLANES = 30
 
+# (device index, stream handle) -> (int64 point sums, int32 tile tickets)
+_WORKSPACES: Dict[Tuple[int, int], Tuple[Tensor, Tensor]] = {}
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("sketch_query")
     lone = lib.storm_sketch_query
-    lone.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lone.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     banked = lib.storm_sketch_query_banked
-    banked.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    banked.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
     lone.restype = banked.restype = ctypes.c_int
     return lib
+
+
+def _workspace(device: torch.device, stream: int, m: int
+               ) -> Tuple[Tensor, Tensor]:
+    """The query kernel's workspace on ``(device, stream)`` for ``m`` points:
+    at least ``m`` int64 sums and ``m`` int32 tickets (a point tile holds
+    one point or more), all zero between launches (each launch leaves them
+    so). Grown, zeroed, when a call needs more; launches on one stream run
+    in order, so they share it.
+    """
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < m:
+        cap = max(m, 4096, 2 * ws[0].numel() if ws is not None else 0)
+        ws = (torch.zeros(cap, dtype=torch.int64, device=device),
+              torch.zeros(cap, dtype=torch.int32, device=device))
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def _check_cuda(q: Tensor, w: Tensor, counts: Tensor) -> None:
@@ -75,12 +104,17 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
     if counts.ndim != 2:
         raise ValueError(f"counts must be (R, B); got {tuple(counts.shape)}")
     p, d, rows = w.shape
-    out = torch.empty((q.shape[0],), dtype=torch.float32, device=q.device)
+    m = q.shape[0]
+    out = torch.empty((m,), dtype=torch.float32, device=q.device)
+    if not m:
+        return out  # nothing to query: no launch
     lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sums, tickets = _workspace(q.device, stream, m)
     code = lib.storm_sketch_query(
         q.data_ptr(), w.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        q.shape[0], d, p, rows, _COUNT_BYTES[counts.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        sums.data_ptr(), tickets.data_ptr(), m, d, p, rows,
+        _COUNT_BYTES[counts.dtype], stream,
     )
     _build.check(code, lib, "sketch_query")
     sketch_query.launches += 1
@@ -121,12 +155,17 @@ def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
         return ref.sketch_query_banked(q, w, counts, idx)
     _check_cuda(q, w, counts)
     p, d, rows = w.shape
-    out = torch.empty((q.shape[0],), dtype=torch.float32, device=q.device)
+    m = q.shape[0]
+    out = torch.empty((m,), dtype=torch.float32, device=q.device)
+    if not m:
+        return out  # nothing to query: no launch
     lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sums, tickets = _workspace(q.device, stream, m)
     code = lib.storm_sketch_query_banked(
         q.data_ptr(), w.data_ptr(), counts.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), q.shape[0], d, p, rows, _COUNT_BYTES[counts.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), sums.data_ptr(), tickets.data_ptr(), m, d, p, rows,
+        _COUNT_BYTES[counts.dtype], stream,
     )
     _build.check(code, lib, "sketch_query_banked")
     sketch_query_banked.launches += 1

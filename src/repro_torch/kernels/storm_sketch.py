@@ -7,7 +7,11 @@ shared hash family. On CUDA tensors each launches its Hopper kernel
 (``csrc/paired_hash_histogram.cu`` and ``csrc/hash_histogram.cu``; their
 source notes say what bounds them and how they are laid out); on CPU tensors
 it runs the plain PyTorch version in ``ref``. There is no fallback from one to
-the other.
+the other. Rows of up to 32 features with p <= 8 take the narrow bodies (a
+hash row's weights in registers); wider rows and more planes take the wide
+body of ``csrc/insert_common.cuh``, which streams the features through shared
+memory, so the kernels take any d and p up to 30 on the card, as the
+reference's Pallas inserts tile any width.
 """
 
 from __future__ import annotations
@@ -22,8 +26,7 @@ from repro_torch.kernels import _build, ref
 Tensor = torch.Tensor
 
 _OUT_BYTES = {torch.int32: 4, torch.int16: 2, torch.int8: 1}
-MAX_PLANES = 8
-MAX_FEATURES = 32  # d: the kernels keep a row's weights in registers
+MAX_PLANES = 30  # codes are int32 bit fields
 MAX_TENANTS = 65535  # the grid's z extent
 
 
@@ -60,9 +63,9 @@ def _check_cuda(x: Tensor, w: Tensor, mask: Tensor, out_dtype,
     want = d + 2 if paired else d
     if d_w != want:
         raise ValueError(f"w has {d_w} features; the points need {want}")
-    if not 1 <= p <= MAX_PLANES or d > MAX_FEATURES:
-        raise ValueError(f"the kernel takes 1 <= p <= {MAX_PLANES} and "
-                         f"d <= {MAX_FEATURES}; got p={p}, d={d}")
+    if not 1 <= p <= MAX_PLANES:
+        raise ValueError(f"the kernel takes 1 <= p <= {MAX_PLANES}; got "
+                         f"p={p}")
     if x.shape[-2] >= 1 << 31 or (banked and x.shape[0] > MAX_TENANTS):
         raise ValueError(f"too many points or tenants: {tuple(x.shape)}")
     if out_dtype not in _OUT_BYTES:

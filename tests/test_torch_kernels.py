@@ -73,6 +73,58 @@ def test_paired_hash_histogram_equals_jax(seed, n, d, p, r, masked, out):
         assert not torch.equal(got, binary)
 
 
+@pytest.mark.parametrize("paired", [True, False], ids=["paired", "single"])
+@pytest.mark.parametrize("seed,n,d,p,r,masked", [
+    (10, 37, 40, 4, 16, True),
+    (11, 29, 515, 2, 16, "weighted"),
+    (12, 33, 40, 9, 16, False),
+])
+def test_wide_inserts_equal_jax(seed, n, d, p, r, masked, paired):
+    # Rows wider than the narrow kernels' 32 features (and p > 8): the JAX
+    # kernels tile d in blocks of 512 (so d = 515 takes two), the card's
+    # wide body streams it through shared memory; the plain version here is
+    # what the card's kernel is held to bit for bit. Tolerance: exact.
+    z, w, mask = _insert_inputs(seed, n, d, p, r, masked)
+    if paired:
+        got = ref.paired_hash_histogram(t(z), t(w), t(mask))
+        want_kernel = jstorm.paired_hash_histogram(
+            jnp.asarray(z), jnp.asarray(w), jnp.asarray(mask), block_n=32,
+            block_r=16, interpret=True)
+        want_ref = jref.paired_hash_histogram(jnp.asarray(z), jnp.asarray(w),
+                                              jnp.asarray(mask))
+    else:
+        x = lsh.augment_data(t(z)).numpy()  # d + 2 columns, as w
+        got = ref.hash_histogram(t(x), t(w), t(mask))
+        want_kernel = jstorm.hash_histogram(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(mask), block_n=32,
+            block_r=16, interpret=True)
+        want_ref = jref.hash_histogram(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(mask))
+    assert got.shape == (r, 1 << p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_kernel))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_ref))
+    per_point = 2 if paired else 1
+    np.testing.assert_array_equal(
+        got.sum(1).numpy(), np.full(r, per_point * int(mask.astype(
+            np.int32).sum())))
+
+
+@pytest.mark.parametrize("banked", [False, True], ids=["lone", "banked"])
+@pytest.mark.parametrize("paired", [True, False], ids=["paired", "single"])
+@pytest.mark.parametrize("d,p", [(33, 4), (64, 1), (4096, 4), (10, 9),
+                                 (40, 12), (1, 30)])
+def test_insert_checks_take_wide_rows_and_many_planes(d, p, paired, banked):
+    # What the card's inserts take: any d (the wide body) and p up to 30.
+    lead = (2, 5) if banked else (5,)
+    x = torch.zeros(lead + (d,))
+    w = torch.zeros((p, d + 2 if paired else d, 7))
+    mask = torch.ones(lead)
+    histogram_kernel._check_cuda(x, w, mask, torch.int32, paired, banked)
+    with pytest.raises(ValueError, match="p <= 30"):
+        histogram_kernel._check_cuda(x, torch.zeros((31,) + w.shape[1:]),
+                                     mask, torch.int32, paired, banked)
+
+
 def test_paired_hash_histogram_saturates_int8():
     z, w, mask = _insert_inputs(3, 400, 2, 1, 5, False)
     wide = ref.paired_hash_histogram(t(z), t(w), t(mask))

@@ -387,6 +387,252 @@ def test_banked_insert_kernels_equal_plain_and_lone(cuda, seed, s, n, d, p, r,
                                         mask[i].contiguous(), out))
 
 
+# The wide body (d > 32 or p > 8): features streamed through shared memory.
+_WIDE_POINTS = {33: 3001, 64: 3001, 515: 1001, 4096: 257}
+
+
+def _wide_case(paired, seed, n, d, p, r, device, masked=True):
+    """Inputs and the three functions (lone kernel, banked kernel, plain
+    banked version) of one insert: paired on unit-ball rows of d features,
+    single-sided on augmented rows of d columns."""
+    if paired:
+        z, w, mask = _insert_inputs(seed, n, d, p, r, masked, device)
+        return (z, w, mask, histogram_kernel.paired_hash_histogram,
+                histogram_kernel.paired_hash_histogram_banked,
+                ref.paired_hash_histogram, ref.paired_hash_histogram_banked)
+    x, w, mask = _single_sided_inputs(seed, n, d, p, r, masked, device)
+    return (x, w, mask, histogram_kernel.hash_histogram,
+            histogram_kernel.hash_histogram_banked, ref.hash_histogram,
+            ref.hash_histogram_banked)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [True, False], ids=["paired", "single"])
+@pytest.mark.parametrize("p", [1, 4, 8, 9, 12])
+@pytest.mark.parametrize("d", [33, 64, 515, 4096])
+def test_wide_insert_equals_plain_version(cuda, d, p, paired):
+    # Lone and banked, partial masks; every row's mass is the mask's.
+    x, w, mask, lone, banked, plain, plain_banked = _wide_case(
+        paired, d + p, _WIDE_POINTS[d], d, p, 300, cuda)
+    before = lone.launches
+    got = lone(x, w, mask)
+    assert lone.launches == before + 1
+    assert torch.equal(got, plain(x, w, mask))
+    per_point = 2 if paired else 1
+    assert torch.equal(got.to(torch.int64).sum(1),
+                       torch.full((300,), per_point * int(mask.sum()),
+                                  dtype=torch.int64, device=cuda))
+    xb = torch.stack([x, x.flip(0)])
+    mb = torch.stack([mask, 1 - mask])
+    got_b = banked(xb, w, mb)
+    assert torch.equal(got_b, plain_banked(xb, w, mb))
+    assert torch.equal(got_b[0], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [True, False], ids=["paired", "single"])
+@pytest.mark.parametrize("d,p,n,out", [
+    (33, 1, 100_003, torch.int16), (64, 4, 20_001, torch.int8),
+    (515, 9, 100_003, torch.int8), (4096, 12, 2_001, torch.int32),
+    (40, 9, 50_001, torch.int32),
+])
+def test_wide_insert_weighted_masks_and_narrow_outputs(cuda, d, p, n, out,
+                                                       paired):
+    # Integer weights in every third 256-slot tile; int16/int8 saturate.
+    x, w, _, lone, banked, plain, _ = _wide_case(paired, d * p, n, d, p, 50,
+                                                 cuda, masked=False)
+    mask = _weighted_mask(d + p, (n,), cuda)
+    assert int(mask.max()) == 3
+    got = lone(x, w, mask, out)
+    assert torch.equal(got, plain(x, w, mask, out))
+    if out != torch.int32:
+        assert int(got.max()) == torch.iinfo(out).max
+    assert torch.equal(banked(x[None], w, mask[None], out)[0], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 3])
+def test_wide_insert_unaligned_rows_and_empty_tiles(cuda, offset):
+    # Rows that start `offset` floats into their buffer, and a mask whose
+    # first tiles are all 0 (the wide body skips them).
+    x, w, mask = _single_sided_inputs(offset, 5001, 70, 4, 257, True, cuda)
+    buf = torch.empty(x.numel() + offset, device=cuda)
+    xv = buf[offset:].view(x.shape)
+    xv.copy_(x)
+    mask[:1000] = 0
+    got = histogram_kernel.hash_histogram(xv, w, mask)
+    assert torch.equal(got, ref.hash_histogram(x, w, mask))
+    z, wp, mp = _insert_inputs(offset, 5001, 70, 9, 257, True, cuda)
+    mp[:1000] = 0
+    got = histogram_kernel.paired_hash_histogram(z, wp, mp)
+    assert torch.equal(got, ref.paired_hash_histogram(z, wp, mp))
+
+
+@pytest.mark.gpu
+def test_wide_rows_sketch_bank_and_serve_on_the_card(cuda):
+    # d > 32 through sketch_dataset, sketch_dataset_many and the gateway's
+    # ingest: one kernel launch each, equal to the plain versions.
+    from repro_torch.core import lsh, sketch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.storm_gateway import IngestRequest, StormGateway
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    dim = 40
+    params = lsh.init_srp(gen, 256, 4, dim + 2, device=cuda)
+    w = ops.from_lsh_params(params)
+    zs = [lsh.scale_to_unit_ball(torch.randn(n, dim, generator=gen,
+                                             device=cuda))[0].contiguous()
+          for n in (3000, 2000)]
+    counters = (histogram_kernel.paired_hash_histogram,
+                histogram_kernel.paired_hash_histogram_banked)
+    for c in counters:
+        c.launches = 0
+    sk = sketch.sketch_dataset(params, zs[0], engine="kernel", device=cuda)
+    assert [c.launches for c in counters] == [1, 0]
+    ones = torch.ones(3000, device=cuda)
+    assert torch.equal(sk.counts, ref.paired_hash_histogram(zs[0], w, ones))
+    bank = sketch.sketch_dataset_many(params, zs, engine="kernel",
+                                      device=cuda)
+    assert [c.launches for c in counters] == [1, 1]
+    for i, z in enumerate(zs):
+        assert torch.equal(bank.counts[i], ref.paired_hash_histogram(
+            z, w, torch.ones(z.shape[0], device=cuda)))
+    gw = StormGateway(params, 2, ingest_slots=1024, device=cuda)
+    rng = np.random.default_rng(10)
+    rows = [(0.1 * rng.normal(size=(700, dim))).astype(np.float32)
+            for _ in range(2)]
+    gw.submit_many([IngestRequest(rid=t, tenant=t, z=rows[t])
+                    for t in range(2)])
+    gw.tick()
+    assert counters[1].launches == 2
+    for t in range(2):
+        zt = torch.from_numpy(rows[t]).to(cuda)
+        assert torch.equal(gw.bank.counts[t], ref.paired_hash_histogram(
+            zt, w, torch.ones(700, device=cuda)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("banked", [False, True], ids=["lone", "banked"])
+@pytest.mark.parametrize("counts_dtype", [torch.int32, torch.int16, torch.int8])
+@pytest.mark.parametrize("p", [1, 4, 9, 16])
+@pytest.mark.parametrize("rows", [1, 33, 2048])
+@pytest.mark.parametrize("m", [0, 1, 17, 198, 272, 512, 1001, 4096])
+def test_query_kernels_shapes_equal_plain_version(cuda, m, rows, p,
+                                                  counts_dtype, banked):
+    # Point tiles (m not a multiple of one, m = 0, 1), row slices (R = 1,
+    # 33, 2048), the staged body (p <= 8) and the generic one (p > 8), narrow
+    # counters and negative ones: bit for bit, one launch per non-empty call.
+    gen = torch.Generator(device=cuda).manual_seed(m + rows + p)
+    s = 2 if banked else 1
+    w = torch.randn(p, 12, rows, generator=gen, device=cuda)
+    hi = min(torch.iinfo(counts_dtype).max, 1 << 20)
+    counts = torch.randint(-hi, hi, (s, rows, 1 << p), generator=gen,
+                           device=cuda, dtype=torch.int32).to(counts_dtype)
+    q = torch.randn(m, 12, generator=gen, device=cuda)
+    if banked:
+        idx = torch.randint(0, s, (m,), generator=gen, device=cuda)
+        kernel = query_kernel.sketch_query_banked
+        before = kernel.launches
+        got = kernel(q, w, counts, idx)
+        want = ref.sketch_query_banked(q, w, counts, idx)
+    else:
+        kernel = query_kernel.sketch_query
+        before = kernel.launches
+        got = kernel(q, w, counts[0])
+        want = ref.sketch_query(q, w, counts[0])
+    assert kernel.launches == before + (m > 0)
+    assert got.shape == (m,) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [33, 515])
+@pytest.mark.parametrize("m", [17, 1001])
+def test_query_kernels_wide_rows_equal_plain_version(cuda, m, d):
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    w = torch.randn(4, d, 300, generator=gen, device=cuda)
+    counts = torch.randint(0, 1 << 20, (3, 300, 16), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    q = torch.randn(m, d, generator=gen, device=cuda)
+    idx = torch.randint(0, 3, (m,), generator=gen, device=cuda)
+    assert torch.equal(query_kernel.sketch_query(q, w, counts[1]),
+                       ref.sketch_query(q, w, counts[1]))
+    assert torch.equal(query_kernel.sketch_query_banked(q, w, counts, idx),
+                       ref.sketch_query_banked(q, w, counts, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,d", [(4, 12), (8, 12), (8, 32)])
+@pytest.mark.parametrize("m", [8449, 70_001])
+def test_query_kernels_large_batches_equal_plain_version(cuda, m, p, d):
+    # Many point tiles leave few blocks along R, so each row slice is as
+    # large as the staged weights' cap in shared memory allows.
+    gen = torch.Generator(device=cuda).manual_seed(m + p + d)
+    w = torch.randn(p, d, 2048, generator=gen, device=cuda)
+    counts = torch.randint(0, 1 << 20, (2, 2048, 1 << p), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    q = torch.randn(m, d, generator=gen, device=cuda)
+    idx = torch.randint(0, 2, (m,), generator=gen, device=cuda)
+    assert torch.equal(query_kernel.sketch_query(q, w, counts[0]),
+                       ref.sketch_query(q, w, counts[0]))
+    assert torch.equal(query_kernel.sketch_query_banked(q, w, counts, idx),
+                       ref.sketch_query_banked(q, w, counts, idx))
+
+
+def _workspace_is_zero(device):
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    sums, tickets = query_kernel._WORKSPACES[(device.index, stream)]
+    return not sums.any() and not tickets.any()
+
+
+@pytest.mark.gpu
+def test_query_workspace_resets_between_calls(cuda):
+    # Calls in a row with different m, lone and banked, on two streams: each
+    # equals its plain version, and the workspace is all zero after each.
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w = torch.randn(4, 12, 2048, generator=gen, device=cuda)
+    counts = torch.randint(0, 1 << 20, (4, 2048, 16), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for m in (4096, 17, 512, 1, 272, 4097, 33):
+                q = torch.randn(m, 12, generator=gen, device=cuda)
+                idx = torch.randint(0, 4, (m,), generator=gen, device=cuda)
+                got = query_kernel.sketch_query(q, w, counts[m % 4])
+                assert torch.equal(got, ref.sketch_query(q, w, counts[m % 4]))
+                assert _workspace_is_zero(dev)
+                got = query_kernel.sketch_query_banked(q, w, counts, idx)
+                assert torch.equal(got,
+                                   ref.sketch_query_banked(q, w, counts, idx))
+                assert _workspace_is_zero(dev)
+
+
+@pytest.mark.gpu
+def test_query_with_a_wrong_checked_index_leaves_the_workspace_clean(cuda):
+    # index_checked=True with an index one past the bank: the caller's
+    # fault, read from the next table of a larger buffer here. The result
+    # is wrong, but the next call sees a zero workspace and is right.
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    w = torch.randn(4, 12, 2048, generator=gen, device=cuda)
+    store = torch.randint(0, 1 << 20, (5, 2048, 16), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    counts = store[:4]
+    q = torch.randn(272, 12, generator=gen, device=cuda)
+    idx = torch.randint(0, 4, (272,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    bad = idx.clone()
+    bad[5] = 4
+    got = query_kernel.sketch_query_banked(q, w, counts, bad,
+                                           index_checked=True)
+    assert torch.equal(got, ref.sketch_query_banked(q, w, store, bad))
+    assert _workspace_is_zero(torch.device("cuda", torch.cuda.current_device()))
+    assert torch.equal(query_kernel.sketch_query_banked(q, w, counts, idx),
+                       ref.sketch_query_banked(q, w, counts, idx))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("counts_dtype", [torch.int32, torch.int16, torch.int8])
 @pytest.mark.parametrize("m", [272, 16, 4096, 1001])
@@ -438,6 +684,87 @@ def test_fit_on_the_card_runs_through_both_kernels(cuda):
     # 50 DFO steps, 2 calls per refine pass, 1 selection call.
     assert query_kernel.sketch_query.launches == 50 + 2 * 1 + 1
     assert float(fit.mse(x, y)) < float(y.var())
+
+
+@pytest.mark.gpu
+def test_edge_to_model_pipeline_on_the_card(cuda):
+    """``TestEdgeToModelPipeline`` (tests/test_torch_regression.py) on the
+    card: the same size, configuration and bars, with torch draws. Sketch
+    three shards through the insert kernel, merge them, drop the data and
+    fit from the counters alone through the query kernel."""
+    from repro_torch.core import baselines, dfo, distributed, lsh, regression
+    from repro_torch.core import sketch as sketch_lib
+    from repro_torch.data import datasets
+    from repro_torch.device import generator
+
+    gen = generator(0, cuda)
+    x, y, _ = datasets.make_regression(gen, 1500, 6, noise=0.2, condition=8)
+    cfg = regression.StormRegressorConfig(
+        rows=2048,
+        dfo=dfo.DFOConfig(steps=250, num_queries=8, sigma=0.5,
+                          sigma_decay=0.995, learning_rate=2.0, decay=0.995,
+                          average_tail=0.5),
+    )
+    xs = (x - x.mean(0)) / (x.std(0, correction=0) + 1e-8)
+    ys = (y - y.mean()) / (y.std(correction=0) + 1e-8)
+    z = torch.cat([xs, ys[:, None]], dim=-1)
+    zs, _ = lsh.scale_to_unit_ball(z, cfg.norm_slack)
+    params = lsh.init_srp(gen, cfg.rows, cfg.planes, z.shape[1] + 2,
+                          device=cuda)
+    histogram_kernel.paired_hash_histogram.launches = 0
+    query_kernel.sketch_query.launches = 0
+    merged = distributed.tree_merge(
+        [sketch_lib.sketch_dataset(params, shard, engine="kernel",
+                                   device=cuda)
+         for shard in torch.tensor_split(zs, 3)])
+    del z, zs, xs, ys  # from here on only the counters
+    assert int(merged.n) == x.shape[0]
+    assert histogram_kernel.paired_hash_histogram.launches == 3
+
+    fit = regression.fit(gen, x, y, cfg, prebuilt=(merged, params, None),
+                         device=cuda)
+    assert histogram_kernel.paired_hash_histogram.launches == 3
+    assert query_kernel.sketch_query.launches == 250 + 2 * cfg.refine_steps + 1
+    mse = float(fit.mse(x, y))
+    assert mse < 0.6 * float(y.var(correction=0)), mse
+    ols = baselines.ols(x, y).theta
+    cos = float(torch.dot(fit.theta, ols) / (fit.theta.norm() * ols.norm()))
+    assert cos > 0.5, cos
+
+
+@pytest.mark.gpu
+def test_wide_fits_on_the_card_run_through_the_kernels(cuda):
+    # d = 40: the paired insert takes 41 features and the single-sided one
+    # 42, both on the wide body; the queries take the generic body. In 41
+    # dimensions the default steps (sigma 0.5, learning rate 2) overshoot;
+    # smaller steps over more query points and rows (chip_smoke.py phase
+    # 15's configuration) beat the mean predictor here.
+    from repro_torch.core import classification, dfo, regression
+    from repro_torch.data import datasets
+    from repro_torch.device import generator
+
+    gen = generator(3, cuda)
+    x, y, _ = datasets.make_regression(gen, 20000, 40, noise=0.2)
+    cfg = regression.StormRegressorConfig(
+        rows=4096, dfo=dfo.DFOConfig(steps=400, num_queries=32, sigma=0.15,
+                                     sigma_decay=0.995, learning_rate=0.25,
+                                     decay=0.995, average_tail=0.5))
+    histogram_kernel.paired_hash_histogram.launches = 0
+    query_kernel.sketch_query.launches = 0
+    fit = regression.fit(gen, x, y, cfg)
+    assert histogram_kernel.paired_hash_histogram.launches == 1
+    assert query_kernel.sketch_query.launches == 400 + 2 * 1 + 1
+    assert float(fit.mse(x, y)) < float(y.var())
+
+    xc, yc, _ = datasets.make_classification(gen, 20000, 40)
+    ccfg = classification.StormClassifierConfig(
+        rows=256, planes=2, dfo=dfo.DFOConfig(steps=60, num_queries=8))
+    histogram_kernel.hash_histogram.launches = 0
+    query_kernel.sketch_query.launches = 0
+    cfit = classification.fit(gen, xc, yc, ccfg)
+    assert histogram_kernel.hash_histogram.launches == 1
+    assert query_kernel.sketch_query.launches == 60 + 1
+    assert float(cfit.accuracy(xc, yc)) > 0.5
 
 
 @pytest.mark.gpu
