@@ -12,9 +12,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3. insert: ``paired_hash_histogram`` against its plain PyTorch version, bit
    for bit, at the main path's full shape, at ragged shapes (d in {1, 3, 4,
    5, 10, 13, 16, 17, 31, 32}, p from 1 to 8, n in {0, 31, 33} and n % 32
-   != 0, partial masks), on the wide body (d in {33, 40, 64, 515, 4096},
-   p = 9), with integer-weighted masks (values 0-3 in some tiles only) and
-   with int16/int8 outputs that saturate.
+   != 0, partial masks), on the wide body (the projection tile: d in {33,
+   40, 63, 64, 515, 4096}, p in {1, 4, 5, 8, 9, 30}, R in {1, 33, 257, 1000,
+   2048}, whole tiles masked out, a view that is not 16-byte aligned), with
+   integer-weighted masks (values 0-3 in some tiles only) and with
+   int16/int8 outputs that saturate.
 4. query: ``sketch_query`` against its plain version, bit for bit, on the
    full-size sketch for m in {17, 198, 4096, 1001, 0, 1, 272, 512}, then on
    random counters (negative ones too) at R in {1, 33, 2048}, p in {1, 4, 9,
@@ -30,8 +32,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    d = 9 features, augmented to 11 columns, R = 1024, p = 2), at ragged
    shapes (d in {1, 3, 4, 5, 7, 11, 13, 15, 16, 17, 31, 32}, p from 1 to 8,
    n in {0, 31, 33} and n % 32 != 0, partial masks, one launch per
-   non-empty stream), on the wide body (d in {35, 42, 64, 70, 515, 4096},
-   p = 9), with integer-weighted masks (values 0-3 in some tiles only), on
+   non-empty stream), on the wide body (d in {33, 35, 40, 42, 63, 64, 70,
+   515, 4096}, p in {1, 2, 4, 5, 8, 9, 30}, R down to 1, whole tiles masked
+   out), with integer-weighted masks (values 0-3 in some tiles only), on
    rows that are not augmented (exact +0.0 and -0.0 entries, all-zero
    rows), on views that are not 16-byte aligned, and with int16/int8
    outputs that saturate.
@@ -42,8 +45,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    against the plain banked version, bit for bit; then, paired and
    single-sided, a gateway-shaped bank (16 tenants x 4096 slots, about half
    masked, interleaved) and an integer-weighted one, the same way; then
-   wide banks (paired d = 40, p = 9 and d = 515, p = 4; single-sided
-   d = 66, p = 4).
+   wide banks (paired d = 40, p = 9, d = 515, p = 4 and d = 63, p = 5;
+   single-sided d = 66, p = 4, d = 63, p = 8 and d = 515, p = 1; the last
+   three over 4095 slots, so that the tenants' rows are not 16-byte
+   aligned).
 8. banked query: ``sketch_query_banked`` against its plain version, bit for
    bit, on the 16-tenant bank for m in {272, 16, 32, 3168, 4096, 0, 1, 17,
    512}, on its int16 and int8 copies, and on random 3-table banks at R in
@@ -64,16 +69,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
     the card could take (the four inserts, kernels 1, 3, 4 and 5, over three
     profiler runs: min, median and max, and every kernel record); kernel 3
     at the kmeans shape (d = 11, p = 4) on its own line; both queries at
-    m in {17, 272, 512, 4096} and both inserts on the wide body (d = 515,
-    n = 2^16, R = 2048, p = 4), each beside its bound; where the
+    m in {17, 272, 512, 4096}, and both inserts on the wide body and
+    kernel 7 on its tiled path (d = 515, n = 2^16, R = 2048, p = 4; the
+    profiler beside CUDA events), each beside its bound and its no-FMA
+    floor; where the
     time of the three fits goes; the gateway's ticks/s, points/s and rows/s,
     synchronous and pipelined, its tick latency (p50, p99) and, under the
     profiler, the device's busy share and the insert's and query's device
     time per tick.
 12. srp_hash: ``ops.srp_hash`` (the entry point, one launch) at the
     regression family's hash (R = 2048, p = 4, 12 features) on 2^18 points
-    and ``srp_hash`` at ragged shapes (d in {11, 31, 515}, R in {33, 2048},
-    p in {1, 8, 30}), each against its plain version, bit for bit.
+    and ``srp_hash`` at ragged shapes (d in {1, 11, 12, 13, 31, 32, 33, 515,
+    4099}, R in {1, 33, 1000, 2048}, p in {1, 2, 4, 8, 9, 30}, n in {0, 1,
+    63, 100 003}, and 2^20 + 1 points at R = 2048: codes past 2^31
+    elements) through both of its paths, one launch per non-empty call,
+    each against its plain version, bit for bit.
 13. gateway: ``StormGateway`` over 16 tenants warm started from phase 7's
     bank, 4096 ingest and 32 query slots, 256 rounds of the launcher's
     ``synth_traffic`` (2048 rows and 17 points per tenant and round; rounds
@@ -94,7 +104,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
     steps of k = 32 at sigma 0.15 and learning rate 0.25) through the wide
     insert and the queries' generic body, with the launch counts of that
     run, and through the kernels' plain versions (the same fit bit for bit);
-    its train MSE and R^2 are printed.
+    its train MSE and R^2 are printed, and its device time under the
+    profiler (the insert's on the projection tile).
 
 The last two lines are the card (nvidia-smi's name and power limit) and
 ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
@@ -154,6 +165,15 @@ WIDE_TIME_ROWS, WIDE_TIME_D = 1 << 16, 515
 SRP_ROWS = 1 << 18
 SRP_RAGGED = ((100_003, 11, 2048, 8), (100_003, 31, 33, 30),
               (100_003, 515, 33, 1))
+# Both paths' new shapes (n, d, R, p): the register path's exact widths
+# (d = 12, 11) and generic bodies, the projection tile's pass layouts and
+# tails, and codes past 2^31 elements (64-bit offsets).
+SRP_TILE = ((0, 12, 2048, 4), (1, 12, 2048, 4), (63, 13, 2048, 9),
+            (100_003, 12, 2048, 4), (100_003, 11, 33, 2),
+            (100_003, 12, 33, 8), (100_003, 32, 2048, 4),
+            (100_003, 1, 1, 1), (100_003, 33, 1000, 8), (1, 4099, 33, 1),
+            (63, 4099, 2048, 30), (8_191, 515, 2048, 4),
+            (100_003, 515, 33, 9), ((1 << 20) + 1, 12, 2048, 4))
 
 # The serving gateway at the regression family's width: 16 tenants warm
 # started from phase 7's bank, 4096 ingest and 32 query slots each, and per
@@ -441,6 +461,22 @@ def _gateway_profile(torch, gw, script):
          f"({seen['sketch_query_kernel']} records)")
 
 
+def _sm_max_mhz() -> int:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return int(out.stdout.split()[0])
+
+
+def _floor_ms(multiply_adds: float, torch) -> float:
+    """The bit-exact contract's floor: a rounded multiply and a rounded add
+    (no FMA) per multiply-add, at one fp32 instruction per lane per cycle
+    on every SM at the card's top SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2.0 * multiply_adds / (sms * 128 * _sm_max_mhz() * 1e6) * 1e3
+
+
 def _bound(bytes_moved: float, flops: float):
     by_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
     by_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -526,6 +562,9 @@ def main() -> int:
     # they were: the fits' quality checks hold chaotic DFO fits to fixed
     # draws.
     extra = generator(SEED + 1, dev)
+    # A third stream for the cases of the projection tile (the inserts' wide
+    # body and kernel 7's tiled path), for the same reason.
+    more = generator(SEED + 2, dev)
     cfg = regression.StormRegressorConfig()
     x, y, _ = datasets.make_regression(gen, N_ROWS, D_FEATURES, NOISE,
                                        CONDITION)
@@ -576,6 +615,22 @@ def main() -> int:
                 device=dev).float()
         return mi
 
+    def unaligned(xi, offset):
+        """A contiguous copy of ``xi`` that starts ``offset`` floats into
+        its buffer, so that it is not 16-byte aligned."""
+        buf = torch.empty(xi.numel() + offset, device=dev)
+        view = buf[offset:].view(xi.shape)
+        view.copy_(xi)
+        return view
+
+    def empty_tiles(mi):
+        """``mi`` with its first 10 000 slots and every other 1024-slot
+        block from there masked out: whole tiles of 0 meet live ones."""
+        mi[..., :10_000] = 0
+        for start in range(10_000, mi.shape[-1], 2048):
+            mi[..., start:start + 1024] = 0
+        return mi
+
     full_counts = check_insert("full", z, w, ones, torch.int32)
     for label, n, d, p, r, keep, out_dtype in (
         ("ragged", 100_003, 10, 4, 2000, 0.9, torch.int32),
@@ -610,15 +665,33 @@ def main() -> int:
         ("wide int16 saturating", 100_003, 33, 1, 50, 1.0, torch.int16),
         ("wide int8 saturating weighted", 100_003, 64, 1, 64, 0.5,
          torch.int8),
+        # The projection tile's shapes: every p pass layout (1, 4, 5, 8; 9
+        # and 30 in passes), tails of d, R and n, the timing shape.
+        ("tile", 65_536, 515, 4, 2048, 1.0, torch.int32),
+        ("tile", 50_001, 63, 5, 1000, 0.5, torch.int32),
+        ("tile", 30_001, 33, 8, 2048, 0.8, torch.int32),
+        ("tile", 20_001, 40, 1, 1, 0.9, torch.int32),
+        ("tile", 20_001, 63, 9, 1000, 0.7, torch.int32),
+        ("tile p=30", 2_001, 40, 30, 1, 0.9, torch.int32),
+        ("tile empty tiles weighted", 100_003, 40, 4, 33, 0.5, torch.int32),
+        ("tile unaligned", 50_001, 40, 4, 1000, 0.9, torch.int32),
+        ("tile int16 saturating", 100_003, 515, 1, 33, 1.0, torch.int16),
     ):
-        g = extra if "wide" in label or p > 8 else gen
+        g = (more if "tile" in label else
+             extra if "wide" in label or p > 8 else gen)
         zi = torch.randn(n, d, generator=g, device=dev)
         if n:
             zi, _ = lsh.scale_to_unit_ball(zi)
+        zi = zi.contiguous()
+        if "unaligned" in label:
+            zi = unaligned(zi, 1)
+            assert zi.is_contiguous() and zi.data_ptr() % 16
         wi = torch.randn(p, d + 2, r, generator=g, device=dev)
         mi = (weighted_mask((n,), keep, g) if "weighted" in label else
               (torch.rand(n, generator=g, device=dev) < keep).float())
-        got = check_insert(label, zi.contiguous(), wi, mi, out_dtype)
+        if "empty tiles" in label:
+            mi = empty_tiles(mi)
+        got = check_insert(label, zi, wi, mi, out_dtype)
         if "saturating" in label and int(got.max()) != torch.iinfo(out_dtype).max:
             raise AssertionError(f"{label} did not saturate")
 
@@ -758,14 +831,6 @@ def main() -> int:
         xi[48::194] = -0.0
         return xi
 
-    def unaligned(xi, offset):
-        """A contiguous copy of ``xi`` that starts ``offset`` floats into
-        its buffer, so that it is not 16-byte aligned."""
-        buf = torch.empty(xi.numel() + offset, device=dev)
-        view = buf[offset:].view(xi.shape)
-        view.copy_(xi)
-        return view
-
     for label, n, d, p, r, keep, out_dtype in (
         ("ragged", 100_003, 11, 1, 1000, 0.9, torch.int32),
         ("ragged", 77_777, 7, 2, 130, 0.7, torch.int32),
@@ -801,8 +866,19 @@ def main() -> int:
         ("wide weighted", 50_001, 42, 9, 64, 0.5, torch.int32),
         ("wide generic", 20_001, 70, 4, 300, 0.9, torch.int32),
         ("wide int8 saturating", 50_001, 64, 2, 64, 1.0, torch.int8),
+        # The projection tile's shapes, as in phase 3.
+        ("tile", 8_191, 515, 4, 2048, 1.0, torch.int32),
+        ("tile", 50_001, 63, 5, 1000, 0.5, torch.int32),
+        ("tile", 30_001, 33, 8, 2048, 0.8, torch.int32),
+        ("tile", 20_001, 40, 1, 1, 0.9, torch.int32),
+        ("tile p=30", 2_001, 41, 30, 1, 0.9, torch.int32),
+        ("tile empty tiles weighted", 100_003, 40, 4, 33, 0.5, torch.int32),
+        ("tile unaligned generic", 50_001, 63, 4, 1000, 0.9, torch.int32),
+        ("tile int16 saturating weighted", 100_003, 515, 1, 33, 0.5,
+         torch.int16),
     ):
-        g = extra if "wide" in label or p > 8 else gen
+        g = (more if "tile" in label else
+             extra if "wide" in label or p > 8 else gen)
         if "generic" in label or d < 3:
             xi = generic_rows(n, d, g)
         else:
@@ -816,6 +892,8 @@ def main() -> int:
         wi = torch.randn(p, d, r, generator=g, device=dev)
         mi = (weighted_mask((n,), keep, g) if "weighted" in label else
               (torch.rand(n, generator=g, device=dev) < keep).float())
+        if "empty tiles" in label:
+            mi = empty_tiles(mi)
         before = insert_kernel.hash_histogram.launches
         got = check_single(label, xi, wi, mi, out_dtype)
         if insert_kernel.hash_histogram.launches != before + (n > 0):
@@ -929,18 +1007,25 @@ def main() -> int:
             raise AssertionError(f"the {label} {kind} bank differs from its "
                                  f"plain version or from the lone kernel")
 
-    # Wide banks: the wide body's banked launch, paired and single-sided.
-    for paired, width, p_w, r_w in ((True, 40, 9, 512), (True, 515, 4, 300),
-                                    (False, 66, 4, 512)):
+    # Wide banks: the wide body's banked launch, paired and single-sided;
+    # 4095 slots put the tenants' rows off 16-byte alignment.
+    for paired, width, p_w, r_w, slots in (
+            (True, 40, 9, 512, GW_INGEST_SLOTS),
+            (True, 515, 4, 300, GW_INGEST_SLOTS),
+            (False, 66, 4, 512, GW_INGEST_SLOTS),
+            (True, 63, 5, 1000, GW_INGEST_SLOTS - 1),
+            (False, 63, 8, 2048, GW_INGEST_SLOTS - 1),
+            (False, 515, 1, 33, GW_INGEST_SLOTS - 1)):
+        g = extra if slots == GW_INGEST_SLOTS else more
         if paired:
             name = "paired_hash_histogram_banked"
             banked = insert_kernel.paired_hash_histogram_banked
             lone = insert_kernel.paired_hash_histogram
             plain = ref.paired_hash_histogram_banked
             zg = torch.stack([lsh.scale_to_unit_ball(torch.randn(
-                GW_INGEST_SLOTS, width, generator=extra, device=dev))[0]
+                slots, width, generator=g, device=dev))[0]
                 for _ in range(4)]).contiguous()
-            wg = torch.randn(p_w, width + 2, r_w, generator=extra,
+            wg = torch.randn(p_w, width + 2, r_w, generator=g,
                              device=dev)
         else:
             name = "hash_histogram_banked"
@@ -948,10 +1033,10 @@ def main() -> int:
             lone = insert_kernel.hash_histogram
             plain = ref.hash_histogram_banked
             zg = lsh.augment_data(torch.stack([lsh.scale_to_unit_ball(
-                torch.randn(GW_INGEST_SLOTS, width - 2, generator=extra,
+                torch.randn(slots, width - 2, generator=g,
                             device=dev))[0] for _ in range(4)])).contiguous()
-            wg = torch.randn(p_w, width, r_w, generator=extra, device=dev)
-        mg = weighted_mask((4, GW_INGEST_SLOTS), 0.5, extra)
+            wg = torch.randn(p_w, width, r_w, generator=g, device=dev)
+        mg = weighted_mask((4, slots), 0.5, g)
         got = banked(zg, wg, mg)
         want = plain(zg, wg, mg)
         torch.cuda.synchronize()
@@ -960,7 +1045,7 @@ def main() -> int:
         slices_equal = all(torch.equal(got[i], lone(zg[i], wg, mg[i]))
                            for i in range(4))
         _log(f"[bank] wide {'paired' if paired else 'single-sided'} bank: "
-             f"S=4 slots={GW_INGEST_SLOTS} d={width} p={p_w} R={r_w}, "
+             f"S=4 slots={slots} d={width} p={p_w} R={r_w}, "
              f"weighted; max|err| vs plain={err:g}; slices equal the lone "
              f"kernel: {slices_equal}")
         if not (torch.equal(got, want) and slices_equal):
@@ -1154,14 +1239,21 @@ def main() -> int:
     errs["srp_hash"] = 0.0
 
     def check_srp(label, xi, wi, got):
-        want = ref.srp_hash(xi, wi)
+        # The plain version by row chunks of at most 2^28 codes, so that a
+        # large output needs no second copy.
+        step = max(1, (1 << 28) // wi.shape[2])
+        err, equal = 0.0, got.shape == (xi.shape[0], wi.shape[2])
+        for a in range(0, xi.shape[0], step):
+            want = ref.srp_hash(xi[a:a + step], wi)
+            part = got[a:a + step]
+            err = max(err, float((part.to(torch.int64)
+                                  - want.to(torch.int64)).abs().max()))
+            equal = equal and torch.equal(part, want)
         torch.cuda.synchronize()
-        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max()
-                    ) if got.numel() else 0.0
         errs["srp_hash"] = max(errs["srp_hash"], err)
         _log(f"[srp] {label}: n={xi.shape[0]} d={wi.shape[1]} p={wi.shape[0]}"
              f" R={wi.shape[2]} max|err|={err:g}")
-        if not torch.equal(got, want):
+        if not equal:
             raise AssertionError(f"srp_hash kernel differs from its plain "
                                  f"version at {label}")
 
@@ -1181,6 +1273,16 @@ def main() -> int:
         xi = torch.randn(n_h, d_h, generator=gen, device=dev)
         wi = torch.randn(p_h, d_h, r_h, generator=gen, device=dev)
         check_srp("ragged", xi, wi, hash_kernel.srp_hash(xi, wi))
+    for n_h, d_h, r_h, p_h in SRP_TILE:
+        xi = torch.randn(n_h, d_h, generator=more, device=dev)
+        wi = torch.randn(p_h, d_h, r_h, generator=more, device=dev)
+        before = hash_kernel.srp_hash.launches
+        got = hash_kernel.srp_hash(xi, wi)
+        if hash_kernel.srp_hash.launches != before + (n_h > 0):
+            raise AssertionError(f"srp_hash at n={n_h}: expected "
+                                 f"{int(n_h > 0)} launch")
+        check_srp("tile" if d_h > 32 or p_h > 8 else "register", xi, wi, got)
+        del got
 
     # -- 13. the serving gateway at full width ----------------------------------
     gw_mod = storm_gateway
@@ -1439,6 +1541,9 @@ def main() -> int:
     if not (torch.isfinite(wide_kernel.theta).all()
             and wide_kernel.theta.shape == (WIDE_FEATURES,)):
         raise AssertionError(f"the wide fit gave {wide_kernel.theta}")
+    # Where the wide fit's time goes: its one insert on the projection tile.
+    _fit_profile("wide", run_wide, torch,
+                 ("projection_tile_kernel", "sketch_query_kernel"))
     del xw, yw
 
     # -- 11. timings ------------------------------------------------------------
@@ -1595,41 +1700,53 @@ def main() -> int:
             _log(f"[time] {name} at m={m_t}: device {q_ms} ms per launch; "
                  f"bound {q_bound:.6f} ms by {q_by}")
 
-    # Both inserts on the wide body: d = 515 (paired: 517 columns of w),
-    # n = 2^16, R = 2048, p = 4, beside their bounds and plain versions.
+    # Both inserts on the wide body and kernel 7 on its tiled path: d = 515
+    # (paired: 517 columns of w), n = 2^16, R = 2048, p = 4, beside their
+    # bounds, no-FMA floors and plain versions.
     wide_z = lsh.scale_to_unit_ball(torch.randn(
         WIDE_TIME_ROWS, WIDE_TIME_D, generator=extra, device=dev))[0]
     wide_x = lsh.augment_data(wide_z[:, :WIDE_TIME_D - 2]).contiguous()
     wide_ones = torch.ones(WIDE_TIME_ROWS, device=dev)
     wide_w = torch.randn(p, WIDE_TIME_D + 2, rows, generator=extra,
                          device=dev)
-    for name, kern, plain, wi, xi in (
+    wide_ws = wide_w[:, :WIDE_TIME_D].contiguous()
+    for name, kern, plain, wi, xi, out_cells in (
         ("paired_hash_histogram", insert_kernel.paired_hash_histogram,
-         ref.paired_hash_histogram, wide_w, wide_z),
+         ref.paired_hash_histogram, wide_w, wide_z, rows << p),
         ("hash_histogram", insert_kernel.hash_histogram, ref.hash_histogram,
-         wide_w[:, :WIDE_TIME_D].contiguous(), wide_x),
+         wide_ws, wide_x, rows << p),
+        ("srp_hash", hash_kernel.srp_hash, ref.srp_hash, wide_ws, wide_z,
+         WIDE_TIME_ROWS * rows),
     ):
-        def wide_insert(kern=kern, xi=xi, wi=wi):
-            return kern(xi, wi, wide_ones)
+        args = (xi, wi) if name == "srp_hash" else (xi, wi, wide_ones)
+
+        def wide_call(kern=kern, args=args):
+            return kern(*args)
 
         # The profiler drops records of these long kernels (a whole run's,
         # once), so the CUDA-event time of the call (allocation and launch
         # included) stands beside it.
-        wide_event = _median_ms(wide_insert, 3, torch)
-        wide_ms = spread_ms(f"{name} on the wide body", wide_insert, 3,
-                            "wide_hist_kernel")
-        wide_plain_ms = _device_ms(lambda plain=plain, xi=xi, wi=wi: plain(
-            xi, wi, wide_ones), 1, torch)
+        where = ("its tiled path" if name == "srp_hash" else
+                 "the wide body")
+        wide_event = _median_ms(wide_call, 3, torch)
+        wide_ms = spread_ms(f"{name} on {where}", wide_call, 3,
+                            "projection_tile_kernel")
+        wide_plain_ms = _device_ms(lambda plain=plain, args=args: plain(
+            *args), 1, torch)
+        # As for the main path's kernels: every column of w (the paired
+        # insert's zero column included) is a multiply-add.
+        multiply_adds = float(WIDE_TIME_ROWS) * wi.shape[1] * rows * p
         wide_bound, wide_by = _bound(
-            bytes_moved=4 * (xi.numel() + WIDE_TIME_ROWS + wi.numel()
-                             + rows * (1 << p)),
-            flops=2.0 * WIDE_TIME_ROWS * wi.shape[1] * rows * p)
-        _log(f"[time] {name} on the wide body (n={WIDE_TIME_ROWS} "
+            bytes_moved=4 * (xi.numel() + wi.numel() + out_cells
+                             + (0 if name == "srp_hash" else WIDE_TIME_ROWS)),
+            flops=2.0 * multiply_adds)
+        _log(f"[time] {name} on {where} (n={WIDE_TIME_ROWS} "
              f"d={xi.shape[1]} p={p} R={rows}): device {wide_ms} ms per "
              f"launch, {wide_event:.4f} ms per call by CUDA events; plain "
              f"version {wide_plain_ms} ms; bound {wide_bound:.4f} ms by "
-             f"{wide_by}")
-    del wide_z, wide_x, wide_w
+             f"{wide_by}; no-FMA floor {_floor_ms(multiply_adds, torch):.4f}"
+             f" ms")
+    del wide_z, wide_x, wide_w, wide_ws
 
     # Where each fit's time goes: device busy time under the profiler.
     _fit_profile("fit", lambda: run_fit("auto"), torch,

@@ -19,11 +19,19 @@ builds that checkout's kernels and times, on the same seeded inputs:
   augmented rows of d = 11, R = 1024, p = 2) and at the kmeans shape
   (p = 4), and kernel 5, its banked form (16 tenants of 2^18 rows, the last
   1000 short, p = 2);
-* kernel 7, ``srp_hash`` (n = 2^18, d = 12, R = 2048, p = 4).
+* kernel 7, ``srp_hash`` (n = 2^18, d = 12, R = 2048, p = 4: the register
+  path) and its tiled path (``srp_wide``: n = 2^16, d = 515, R = 2048,
+  p = 4, a probe's ``d_model + 3`` at d_model = 512);
+* the inserts' wide body (``wide_paired``, ``wide_single``: d = 515,
+  n = 2^16, R = 2048, p = 4; kernels 1 and 3 at a probe-sized row), and
+  kernel 1 at chip_smoke phase 15's wide fit (``wide_fit``: d = 40,
+  n = 2^20, R = 4096, p = 4).
 
 For each: device time per launch from torch.profiler (the mean over the
 kernel records it kept, with their count: the profiler has been seen to drop
-a record of these kernels) and the median CUDA-event time per call (the
+a record of these kernels; a kernel is matched by its name in either tree,
+e.g. the wide body's ``projection_tile_kernel`` or the parent's
+``wide_hist_kernel``) and the median CUDA-event time per call (the
 queries' keys carry their m: ``query_m272_device_ms``). While
 a queue of each lone insert (kernels 1 and 3) runs, it reads the SM clock
 three times with nvidia-smi (``*_sm_clock_mhz``; ``*_clock_sampled_busy``
@@ -49,12 +57,20 @@ TENANTS, TENANT_ROWS, TENANT_SHORT = 16, 1 << 18, 1000
 # The single-sided family: d = 9 features augmented to 11 columns.
 S_D, S_ROWS, S_PLANES, KMEANS_PLANES = 11, 1024, 2, 4
 SRP_ROWS = 1 << 18
+WIDE_ROWS, WIDE_D = 1 << 16, 515
+FIT_ROWS, FIT_D, FIT_HASH_ROWS = 1 << 20, 40, 4096
+# Kernel names of the wide shapes: this design's, then earlier trees'.
+TILE = ("projection_tile_kernel",)
+WIDE_SYMBOLS = TILE + ("wide_hist_kernel",)
+SRP_WIDE_SYMBOLS = TILE + ("srp_hash_tiled_kernel",)
 
 
-def _named(symbol: str, name: str) -> bool:
-    """Whether a profiler kernel name is the device function ``symbol``
-    (demangled ``ns::symbol<...>`` or mangled ``<len>symbol``)."""
-    return f"::{symbol}" in name or f"{len(symbol)}{symbol}" in name
+def _named(symbols, name: str) -> bool:
+    """Whether a profiler kernel name is one of the device functions
+    ``symbols`` (a name or a tuple; demangled ``ns::symbol<...>`` or mangled
+    ``<len>symbol``)."""
+    symbols = (symbols,) if isinstance(symbols, str) else symbols
+    return any(f"::{s}" in name or f"{len(s)}{s}" in name for s in symbols)
 
 
 def _child(tree: Path) -> dict:
@@ -103,6 +119,15 @@ def _child(tree: Path) -> dict:
         TENANTS, TENANT_ROWS, S_D).contiguous()
     xh = lsh.augment_query(lsh.normalize_query(
         torch.randn(SRP_ROWS, D, generator=gen, device=dev))).contiguous()
+    zw = unit_ball(WIDE_ROWS, WIDE_D)
+    xw = lsh.augment_data(zw[:, :WIDE_D - 2]).contiguous()
+    ww = torch.randn(PLANES, WIDE_D + 2, ROWS, generator=gen, device=dev)
+    wws = ww[:, :WIDE_D].contiguous()
+    mw = torch.ones(WIDE_ROWS, device=dev)
+    zf = unit_ball(FIT_ROWS, FIT_D)
+    wf = torch.randn(PLANES, FIT_D + 2, FIT_HASH_ROWS, generator=gen,
+                     device=dev)
+    mf = torch.ones(FIT_ROWS, device=dev)
 
     def timed(fn, reps, symbol):
         """(median event ms per call, device ms per record, records)."""
@@ -158,6 +183,14 @@ def _child(tree: Path) -> dict:
             xb, ws, mb), 5, "hist_kernel"),
         ("srp", lambda: hash_kernel.srp_hash(xh, w), 20,
          "srp_hash_reg_kernel"),
+        ("srp_wide", lambda: hash_kernel.srp_hash(zw, wws), 5,
+         SRP_WIDE_SYMBOLS),
+        ("wide_paired", lambda: insert_kernel.paired_hash_histogram(
+            zw, ww, mw), 5, WIDE_SYMBOLS),
+        ("wide_single", lambda: insert_kernel.hash_histogram(xw, wws, mw), 5,
+         WIDE_SYMBOLS),
+        ("wide_fit", lambda: insert_kernel.paired_hash_histogram(zf, wf, mf),
+         3, WIDE_SYMBOLS),
         *[(f"query_m{m}", lambda q=q: query_kernel.sketch_query(q, w, counts),
            200, "sketch_query_kernel") for m, (q, _) in queries.items()],
         *[(f"query_banked_m{m}",
@@ -182,7 +215,14 @@ def _child(tree: Path) -> dict:
                    ("single_p4", insert_kernel.hash_histogram(x, wk, mask)),
                    ("single_bank", insert_kernel.hash_histogram_banked(
                        xb, ws, mb)),
-                   ("srp", hash_kernel.srp_hash(xh, w))):
+                   ("srp", hash_kernel.srp_hash(xh, w)),
+                   ("srp_wide", hash_kernel.srp_hash(zw, wws)),
+                   ("wide_paired", insert_kernel.paired_hash_histogram(
+                       zw, ww, mw)),
+                   ("wide_single", insert_kernel.hash_histogram(
+                       xw, wws, mw)),
+                   ("wide_fit", insert_kernel.paired_hash_histogram(
+                       zf, wf, mf))):
         t = t.to(torch.int64)
         out[f"{key}_sum"] = int(t.sum())
         out[f"{key}_bucket_sum"] = int(

@@ -3,9 +3,9 @@
 
     python3 scripts/insert_variants.py [--parent TREE] [--family NAME ...]
 
-Each variant is a copy of an insert source in ``src/repro_torch/kernels/csrc``
-with at most one of its constants rewritten, compiled by ``nvcc`` with the
-repository's flags. The paired insert (``paired_hash_histogram.cu``,
+Each variant is a copy of a source in ``src/repro_torch/kernels/csrc`` with
+one or more constants rewritten (in the source or in a header it includes),
+compiled by ``nvcc`` with the repository's flags. The paired insert (``paired_hash_histogram.cu``,
 kernels 1 and 4):
 
     paired            the source as the package builds it (two hash rows per
@@ -27,9 +27,25 @@ The RACE query (``sketch_query.cu``, kernels 2 and 6):
     query blocks=N    kBlocksPerSm = N (8, 16): the grid's target per SM
     query tile=N      kMaxTile = N (64, 256): points per block
 
+The projection tile (``projection_tile.cuh``: the inserts' wide body and
+the SRP hash's tiled path) and the SRP hash's register path
+(``srp_hash.cu``, kernel 7), whose constants may live in a header:
+
+    wide              both insert sources as the package builds them
+    wide points=4     kProjPointsNarrow = 4: points per thread at p <= 4
+    wide blocks=2     kProjMinBlocksNarrow = 2: two blocks per SM at p <= 4
+                      (128 registers, spills)
+    wide points=4 blocks=3   both: three blocks per SM
+    wide chunk=32     kProjChunkNarrow = 32: features per stage
+    srp               the source as the package builds it
+    srp rows=1        kPairPlanes = 0: one hash row per thread everywhere
+    srp threads=256   kRegThreads = 256: threads per block
+    srp points=4, srp blocks=2   the tile's constants, as for ``wide``
+
 ``--parent TREE`` adds the sources of another checkout (the parent commit,
-unpacked by ``git archive``) as ``paired parent``, ``single parent`` and
-``query parent``. ``--family`` picks families (default: all three).
+unpacked by ``git archive``) as ``paired parent``, ``single parent``,
+``query parent``, ``wide parent`` and ``srp parent``. ``--family`` picks
+families (default: all five).
 
 For every variant it prints one JSON line with:
 
@@ -53,6 +69,19 @@ For every variant it prints one JSON line with:
   p = 2 (``lone_ms``), the banked insert over 16 tenants of 2^18 rows at
   p = 2 (``banked_ms``) and the lone insert at p = 4 (``lone_p4_ms``);
 * ``equal``: whether each of its outputs equals its family's default build's.
+
+A wide variant prints registers and spills of the tile at p = 4 (paired
+and single-sided; the parent's lone and banked kernels), the hot loop's instructions per
+multiply-add (``sass``: ``per_ma``, ``total_per_ma``; the loop with the most
+FMULs per instruction, one FMUL per multiply-add), and the median
+CUDA-event time of the lone inserts at d = 515, n = 2^16, R = 2048, p = 4
+(``paired_ms``, ``single_ms``) and of the paired insert at p = 9 on 2^14
+rows (``paired_p9_ms``). An srp variant prints registers and spills of the
+register path at d = 12, p = 4 and of the tile at p = 4, the register
+path's hot loop per (point, row) pair (``sass_reg``) and the tile's per
+multiply-add (``sass_tile``), and the median CUDA-event time of
+``storm_srp_hash`` at n = 2^18, d = 12, R = 2048, p = 4 (``reg_ms``) and
+at n = 2^16, d = 515, R = 2048, p = 4 (``tile_ms``).
 
 A query variant prints, instead of ``sass`` and the insert times, the device
 time per launch (``torch.profiler``, the mean over 200 launches' records)
@@ -123,6 +152,39 @@ QUERY = dict(
               "blocks=8": ("kBlocksPerSm", 8), "blocks=16": ("kBlocksPerSm", 16),
               "tile=64": ("kMaxTile", 64), "tile=256": ("kMaxTile", 256)},
     stem="sketch_query_kernelILi4ELi12ELb0E", m=(17, 272, 512, 4096))
+# The projection tile. A variant's edits may rewrite several constants, in
+# the sources or in a header; the stems name the main instantiations (PG = 4,
+# PAIRED; one kernel serves lone and banked streams) in this tree
+# and in the parent's wide_hist_kernel (PMAX = 8, TPT = 4), lone then
+# banked.
+TILE_VARIANTS = {
+    "points=4": (("kProjPointsNarrow", 4),),
+    "blocks=2": (("kProjMinBlocksNarrow", 2),),
+    "points=4 blocks=3": (("kProjPointsNarrow", 4),
+                          ("kProjMinBlocksNarrow", 3)),
+    "chunk=32": (("kProjChunkNarrow", 32),),
+}
+WIDE = dict(
+    sources=("paired_hash_histogram.cu", "hash_histogram.cu"),
+    variants=TILE_VARIANTS, d=515, n=1 << 16, rows=2048, planes=4,
+    stems={"new": {"paired": ("projection_tile_kernelILi4ELb1E",),
+                   "single": ("projection_tile_kernelILi4ELb0E",)},
+           "parent": {"paired": ("wide_hist_kernelILi8ELi4ELb1ELb0E",
+                                 "wide_hist_kernelILi8ELi4ELb1ELb1E"),
+                      "single": ("wide_hist_kernelILi8ELi4ELb0ELb0E",
+                                 "wide_hist_kernelILi8ELi4ELb0ELb1E")}})
+SRP = dict(
+    sources=("srp_hash.cu",),
+    variants={"rows=1": (("kPairPlanes", 0),),
+              "threads=256": (("kRegThreads", 256),),
+              "points=4": TILE_VARIANTS["points=4"],
+              "blocks=2": TILE_VARIANTS["blocks=2"]},
+    reg=(1 << 18, 12, 2048, 4), tile=(1 << 16, 515, 2048, 4),
+    stems={"new": ("srp_hash_reg_kernelILi4ELi12ELi12ELi2E",
+                   "srp_hash_reg_kernelILi4ELi12ELi12ELi1E",
+                   "projection_tile_kernelILi4ELb0E"),
+           "parent": ("srp_hash_reg_kernelILi4ELi16E", None,
+                      "srp_hash_tiled_kernel")})
 INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)"
                   r"([^;]*);")
 
@@ -131,20 +193,36 @@ def constant_pattern(name):
     return rf"(constexpr int {name} = )(\d+);"
 
 
-def variant_source(src, constant, out_dir, name):
-    """A copy of ``src`` in ``out_dir`` with ``constexpr int NAME = v;``
-    rewritten to ``constant = (NAME, value)``; None where the source already
-    has that value (the default build is that variant)."""
-    text = src.read_text()
-    found = re.findall(constant_pattern(constant[0]), text)
-    if len(found) != 1:
-        raise RuntimeError(f"{constant[0]} is not one constant of {src}")
-    if int(found[0][1]) == constant[1]:
+def variant_tree(sources, edits, out_dir, name):
+    """Copies of ``sources`` (file names in the package's ``csrc``) in a
+    directory of their own, with every ``(NAME, value)`` of ``edits``
+    rewritten where the sources define it, else where a header does (a
+    rewritten header lies beside the copies, which include it first):
+    ``{source: path}``, or None where no constant changes (the default
+    build is that variant)."""
+    headers = sorted(f.name for f in CSRC.glob("*.cuh"))
+    files = {f: (CSRC / f).read_text() for f in [*sources, *headers]}
+    changed = set()
+    for const, value in edits:
+        def defines(names):
+            return [f for f in names
+                    if re.search(constant_pattern(const), files[f])]
+        where = defines(sources) or defines(headers)
+        if len(where) != 1:
+            raise RuntimeError(f"{const} is not one constant of {sources}")
+        text = files[where[0]]
+        if int(re.search(constant_pattern(const), text).group(2)) == value:
+            continue
+        files[where[0]] = re.sub(constant_pattern(const),
+                                 rf"\g<1>{value};", text)
+        changed.add(where[0])
+    if not changed:
         return None
-    out = out_dir / f"{name.replace('=', '_').replace(' ', '_')}.cu"
-    out.write_text(re.sub(constant_pattern(constant[0]),
-                          rf"\g<1>{constant[1]};", text))
-    return out
+    home = out_dir / name.replace("=", "_").replace(" ", "_")
+    home.mkdir(parents=True, exist_ok=True)
+    for f in changed | set(sources):
+        (home / f).write_text(files[f])
+    return {s: home / s for s in sources}
 
 
 def build(name, src, out_dir, nvcc_path, flags):
@@ -180,8 +258,9 @@ def ptxas_usage(log, stems):
     return {k: tuple(v) for k, v in usage.items()}
 
 
-def hot_loop_mix(lib, stem, planes, compares):
-    """Opcode counts per pair in the hot loop of the function ``stem``."""
+def hot_loop_mix(lib, stem, planes, compares, per="pair"):
+    """Opcode counts per pair (per="pair") or per multiply-add (per="ma":
+    one FMUL each) in the hot loop of the function ``stem``."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -210,20 +289,23 @@ def hot_loop_mix(lib, stem, planes, compares):
              and len(lp[2]) > len(ops)]
     outer_extra = (min(len(lp[2]) for lp in outer) - len(ops)) if outer else 0
     counts = collections.Counter(o.split(".")[0] for o in ops)
-    pairs = (counts["FSETP"] + counts["FSET"]) / (compares * planes)
-    return {"instructions": len(ops), "pairs_per_iteration": pairs,
-            "per_pair": {k: round(v / pairs, 3)
-                         for k, v in sorted(counts.items())},
-            "total_per_pair": round(len(ops) / pairs, 3),
+    if per == "ma":
+        units = counts["FMUL"]
+    else:
+        units = (counts["FSETP"] + counts["FSET"]) / (compares * planes)
+    return {"instructions": len(ops), f"{per}s_per_iteration": units,
+            f"per_{per}": {k: round(v / units, 3)
+                           for k, v in sorted(counts.items())},
+            f"total_per_{per}": round(len(ops) / units, 3),
             "outer_extra": outer_extra}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None)
-    ap.add_argument("--family", nargs="+", default=["paired", "single",
-                                                    "query"],
-                    choices=["paired", "single", "query"])
+    ap.add_argument("--family", nargs="+",
+                    default=["paired", "single", "query", "wide", "srp"],
+                    choices=["paired", "single", "query", "wide", "srp"])
     args = ap.parse_args()
 
     import torch
@@ -249,17 +331,41 @@ def main() -> int:
         src = _build.CSRC / spec["source"]
         jobs[fam] = (fam, src, "new")
         for label, constant in spec["variants"].items():
-            copy = variant_source(src, constant, out_dir, f"{fam} {label}")
-            if copy is not None:
-                jobs[f"{fam} {label}"] = (fam, copy, "new")
+            copies = variant_tree((spec["source"],), (constant,), out_dir,
+                                  f"{fam} {label}")
+            if copies is not None:
+                jobs[f"{fam} {label}"] = (fam, copies[spec["source"]], "new")
         if args.parent is not None:
             jobs[f"{fam} parent"] = (fam, args.parent.resolve()
                                      / "src/repro_torch/kernels/csrc"
                                      / spec["source"], "parent")
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        built = dict(zip(jobs, pool.map(
-            lambda name: build(name, jobs[name][1], out_dir, _build.nvcc(),
-                               _build.NVCC_FLAGS), jobs)))
+    # The tile families: name -> (family, {source: path}, tree).
+    tile_jobs = {}
+    for fam, spec in (("wide", WIDE), ("srp", SRP)):
+        if fam not in args.family:
+            continue
+        tile_jobs[fam] = (fam, {s: CSRC / s for s in spec["sources"]}, "new")
+        for label, edits in spec["variants"].items():
+            copies = variant_tree(spec["sources"], edits, out_dir,
+                                  f"{fam} {label}")
+            if copies is not None:
+                tile_jobs[f"{fam} {label}"] = (fam, copies, "new")
+        if args.parent is not None:
+            tile_jobs[f"{fam} parent"] = (fam, {
+                s: args.parent.resolve() / "src/repro_torch/kernels/csrc" / s
+                for s in spec["sources"]}, "parent")
+    units = {name: (name, src) for name, (_, src, _) in jobs.items()}
+    units.update({f"{name} {Path(s).stem}": (f"{name} {Path(s).stem}", path)
+                  for name, (_, srcs, _) in tile_jobs.items()
+                  for s, path in srcs.items()})
+    with ThreadPoolExecutor(len(units)) as pool:
+        done = dict(zip(units, pool.map(
+            lambda u: build(units[u][0], units[u][1], out_dir, _build.nvcc(),
+                            _build.NVCC_FLAGS), units)))
+    built = {name: done[name] for name in jobs}
+    tile_built = {name: {Path(s).stem: done[f"{name} {Path(s).stem}"]
+                         for s in srcs}
+                  for name, (_, srcs, _) in tile_jobs.items()}
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -268,6 +374,12 @@ def main() -> int:
         return lsh.scale_to_unit_ball(
             torch.randn(n, d, generator=gen, device=dev))[0].contiguous()
 
+    for fam, timer in (("wide", time_wide), ("srp", time_srp)):
+        if fam in args.family:
+            timer({n: tile_built[n] for n in tile_jobs
+                   if tile_jobs[n][0] == fam},
+                  {n: tile_jobs[n] for n in tile_jobs
+                   if tile_jobs[n][0] == fam}, torch, gen, unit_ball)
     if "query" in args.family:
         time_queries({n: built[n] for n in jobs if jobs[n][0] == "query"},
                      {n: jobs[n] for n in jobs if jobs[n][0] == "query"},
@@ -357,6 +469,126 @@ def main() -> int:
                                                         reference[fam])],
         }), flush=True)
     return 0
+
+
+def _event_ms(torch, fn, reps=5):
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _checked(name, fn):
+    def call(*a):
+        code = fn(*a)
+        if code != 0:
+            raise RuntimeError(f"{name}: CUDA error {code}")
+    return call
+
+
+def time_wide(built, jobs, torch, gen, unit_ball):
+    """One JSON line per wide variant (see the module note)."""
+    dev = torch.device("cuda")
+    d, n, rows, p = (WIDE[k] for k in ("d", "n", "rows", "planes"))
+    z = unit_ball(n, d)
+    z9 = z[:1 << 14].contiguous()
+    ones = torch.ones(n, device=dev)
+    w = {True: torch.randn(p, d + 2, rows, generator=gen, device=dev),
+         False: torch.randn(p, d, rows, generator=gen, device=dev)}
+    w9 = torch.randn(9, d + 2, rows, generator=gen, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    reference = None
+    for name, libs in built.items():
+        tree = jobs[name][2]
+        out = {"variant": name, "card": torch.cuda.get_device_name(0),
+               "ptxas": {}, "sass": {}}
+        outputs = []
+        for key, stem, paired in (("paired", "paired_hash_histogram", True),
+                                  ("single", "hash_histogram", False)):
+            lib_path, log = libs[stem]
+            lib = ctypes.CDLL(str(lib_path))
+            fn = getattr(lib, f"storm_{stem}")
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            call = _checked(name, fn)
+            stems = WIDE["stems"][tree][key]
+            out["ptxas"][key] = ptxas_usage(log, stems)
+            out["sass"][key] = hot_loop_mix(lib_path, stems[0], p, 0,
+                                            per="ma")
+            hist = torch.zeros(rows, 1 << p, dtype=torch.int32, device=dev)
+
+            def run(call=call, wi=w[paired], hist=hist):
+                hist.zero_()
+                call(z.data_ptr(), wi.data_ptr(), ones.data_ptr(),
+                     hist.data_ptr(), hist.data_ptr(), n, d, p, rows, 4,
+                     stream)
+
+            out[f"{key}_ms"] = _event_ms(torch, run)
+            outputs.append(hist.clone())
+            if paired:
+                h9 = torch.zeros(rows, 1 << 9, dtype=torch.int32, device=dev)
+
+                def run9(call=call):
+                    h9.zero_()
+                    call(z9.data_ptr(), w9.data_ptr(), ones.data_ptr(),
+                         h9.data_ptr(), h9.data_ptr(), z9.shape[0], d, 9,
+                         rows, 4, stream)
+
+                out["paired_p9_ms"] = _event_ms(torch, run9)
+                outputs.append(h9.clone())
+        reference = reference or outputs
+        out["equal"] = [torch.equal(a, b) for a, b in zip(outputs, reference)]
+        print(json.dumps(out), flush=True)
+
+
+def time_srp(built, jobs, torch, gen, unit_ball):
+    """One JSON line per srp variant (see the module note)."""
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = {}
+    for key in ("reg", "tile"):
+        n, d, rows, p = SRP[key]
+        shapes[key] = (torch.randn(n, d, generator=gen, device=dev),
+                       torch.randn(p, d, rows, generator=gen, device=dev),
+                       torch.empty(n, rows, dtype=torch.int32, device=dev))
+    reference = None
+    for name, libs in built.items():
+        tree = jobs[name][2]
+        lib_path, log = libs["srp_hash"]
+        lib = ctypes.CDLL(str(lib_path))
+        lib.storm_srp_hash.argtypes = ([ctypes.c_void_p] * 3
+                                       + [ctypes.c_int] * 4
+                                       + [ctypes.c_void_p])
+        call = _checked(name, lib.storm_srp_hash)
+        reg2, reg1, tile = SRP["stems"][tree]
+        sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                               str(lib_path)], capture_output=True,
+                              text=True, check=True).stdout
+        reg = reg2 if reg2 in sass else reg1
+        out = {"variant": name, "card": torch.cuda.get_device_name(0),
+               "ptxas": ptxas_usage(log, (reg, tile)),
+               "sass_reg": hot_loop_mix(lib_path, reg, SRP["reg"][3], 1),
+               "sass_tile": hot_loop_mix(lib_path, tile, SRP["tile"][3], 0,
+                                         per="ma")}
+        outputs = []
+        for key in ("reg", "tile"):
+            n, d, rows, p = SRP[key]
+            x, w, codes = shapes[key]
+            out[f"{key}_ms"] = _event_ms(torch, lambda: call(
+                x.data_ptr(), w.data_ptr(), codes.data_ptr(), n, d, p, rows,
+                stream))
+            outputs.append(codes.clone())
+        reference = reference or outputs
+        out["equal"] = [torch.equal(a, b) for a, b in zip(outputs, reference)]
+        print(json.dumps(out), flush=True)
 
 
 def time_queries(built, jobs, torch, gen):

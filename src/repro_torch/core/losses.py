@@ -58,6 +58,17 @@ def hinge_empirical_risk(theta: Tensor, x: Tensor, y: Tensor) -> Tensor:
     return torch.mean(torch.clamp(1.0 - y * (x @ theta), min=0.0))
 
 
+def surrogate_slope_at(inner: float, planes: int) -> Tensor:
+    """``|dg/d<a,b>|`` at a given inner product: the paper's Fig. 3(b).
+
+    Autograd of :func:`prp_surrogate`; not finite (NaN) at ``+-1``, where
+    ``acos`` has an infinite slope, as in the reference.
+    """
+    t = torch.tensor(float(inner), dtype=torch.float32, requires_grad=True)
+    (grad,) = torch.autograd.grad(prp_surrogate(t, planes), t)
+    return grad.abs()
+
+
 @dataclasses.dataclass(frozen=True)
 class Surrogate:
     """Everything ``core.erm`` needs to train one loss from counters.

@@ -18,6 +18,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, randn, resolve_device
@@ -161,3 +162,17 @@ def query_codes(params: LSHParams, q: Tensor) -> Tensor:
 def pair_codes(codes_a: Tensor, codes_b: Tensor, buckets_b: int) -> Tensor:
     """Injective code pairing (LSH composition, Theorem 1)."""
     return codes_a * buckets_b + codes_b
+
+
+def empirical_collision_rate(params: LSHParams, x: Tensor, y: Tensor,
+                             planes: int) -> Tensor:
+    """Fraction of hash rows on which ``x`` and ``y`` collide (test helper).
+
+    The hits are counted exactly and scaled by the fp32 reciprocal of R, as
+    XLA lowers the reference's ``jnp.mean``, so the two agree bit for bit.
+    """
+    del planes  # implied by params; kept for symmetry with the analytic fns
+    hits = (srp_codes(params, x) == srp_codes(params, y)).sum(
+        -1, dtype=torch.int64).to(torch.float32)
+    rows = params.projections.shape[0]
+    return hits * float(np.float32(1.0) / np.float32(rows))

@@ -89,6 +89,43 @@ def _standardize(x: Tensor, y: Tensor, enabled: bool):
 scale_to_unit_ball = lsh.scale_to_unit_ball  # canonical home: core.lsh
 
 
+def make_loss_fn(
+    sk: sketch_lib.Sketch,
+    params: lsh.LSHParams,
+    l2: float = 0.0,
+    engine: str = "auto",
+    d: Optional[int] = None,
+):
+    """Regression's PRP sketch-loss closure: ``erm.sketch_loss_fn`` with
+    ``paired=True`` (see ``fleet.make_loss_fn``)."""
+    return erm.sketch_loss_fn(sk, params, paired=True, l2=l2, engine=engine,
+                              d=d)
+
+
+def seed_fleet(
+    gen: Optional[torch.Generator],
+    f: int,
+    d: int,
+    config: StormRegressorConfig,
+    inits: Optional[Tensor] = None,
+    device: DeviceLike = None,
+):
+    """Regression's restart-diversity schedule: ``fleet.seed_fleet`` over the
+    ``(d + 1)``-dim homogeneous iterate with a zero baseline init.
+
+    ``inits`` (``(F - 1, d + 1)`` standard normals) are drawn from ``gen``
+    when omitted and ``F > 1``; the reference's per-member keys have no
+    counterpart here (its draws cross as ``inits``).
+
+    Returns:
+      ``(theta0 (F, d+1), sigmas (F,), lrs (F,))``.
+    """
+    dev = resolve_device(device)
+    return fleet.seed_fleet(f, d + 1, config.dfo,
+                            fleet.config_from_restarts(config), inits=inits,
+                            generator=gen, device=dev)
+
+
 def fit(
     gen: Optional[torch.Generator],
     x: Tensor,

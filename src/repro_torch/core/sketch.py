@@ -129,6 +129,16 @@ def prp_update(sketch: Sketch, codes_pos: Tensor, codes_neg: Tensor) -> Sketch:
                   n=sketch.n + codes_pos.shape[0])
 
 
+def insert(sketch: Sketch, params: lsh.LSHParams, x: Tensor) -> Sketch:
+    """Hash-and-insert raw (already scaled) points ``x: (batch, dim)``."""
+    return update(sketch, lsh.srp_codes(params, x))
+
+
+def prp_insert(sketch: Sketch, params: lsh.LSHParams, z: Tensor) -> Sketch:
+    """PRP hash-and-insert of pre-scaled concatenated examples ``[x, y]``."""
+    return prp_update(sketch, *lsh.prp_codes(params, z))
+
+
 def merge(a: Sketch, b: Sketch) -> Sketch:
     """Sketch of the union: the elementwise (saturating) sum."""
     return Sketch(counts=saturating_add(a.counts, b.counts), n=a.n + b.n)

@@ -48,8 +48,8 @@
 //     the paper's d = 9, augmented, and the single-sided gateway) is a
 //     compile-time loop; every other d <= 32 takes a generic body over
 //     DMAX = 16 or 32 with a runtime guard. Wider rows (d > 32) and p > 8
-//     take the wide body of insert_common.cuh, which streams the features
-//     through shared memory (any d, p up to 30).
+//     take the wide body, the register-blocked projection tile of
+//     projection_tile.cuh (any d, p up to 30).
 //   * Counting off the per-pair path (p <= 5 while a row's weights fit in
 //     128 registers): per group of 32 records a thread sets bit k of word
 //     P_j when plane j of record k is positive; after the group bucket b
@@ -69,7 +69,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "insert_common.cuh"
+#include "projection_tile.cuh"
 
 namespace {
 

@@ -43,8 +43,8 @@
 //   * Exact width: d = 10 (the regression family: kernel 1, the bank and
 //     the gateway) is a compile-time loop; other d <= 32 take a generic
 //     body over DMAX = 16 or 32 with a runtime guard. Wider rows (d > 32)
-//     and p > 8 take the wide body of insert_common.cuh, which streams the
-//     features through shared memory (any d, p up to 30).
+//     and p > 8 take the wide body, the register-blocked projection tile
+//     of projection_tile.cuh (any d, p up to 30).
 //   * Counting off the per-pair path (p <= 5 while a row's weights fit in
 //     128 registers; d = 10 takes two rows per thread at p <= 4): per group
 //     of 32 records a thread sets bit k of word P_j (N_j) when plane j of
@@ -69,7 +69,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "insert_common.cuh"
+#include "projection_tile.cuh"
 
 namespace {
 

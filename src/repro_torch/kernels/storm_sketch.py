@@ -9,9 +9,9 @@ source notes say what bounds them and how they are laid out); on CPU tensors
 it runs the plain PyTorch version in ``ref``. There is no fallback from one to
 the other. Rows of up to 32 features with p <= 8 take the narrow bodies (a
 hash row's weights in registers); wider rows and more planes take the wide
-body of ``csrc/insert_common.cuh``, which streams the features through shared
-memory, so the kernels take any d and p up to 30 on the card, as the
-reference's Pallas inserts tile any width.
+body, the projection tile of ``csrc/projection_tile.cuh``, which streams the
+features through shared memory, so the kernels take any d and p up to 30 on
+the card, as the reference's Pallas inserts tile any width.
 """
 
 from __future__ import annotations

@@ -210,14 +210,19 @@ def _surrogate_parity(name, key, x, y, cfg):
     d = x.shape[-1]
     params = interop.lsh_params(np.asarray(jlsh.init_srp(
         k_hash, cfg.rows, cfg.planes, d + spec.pad + 2).projections), CPU)
-    keys, noise = tenant_draws(k_fit, 1, d + spec.pad, init_noise=True)
-    dirs, _ = fleet_draws(keys, cfg.dfo.steps, cfg.dfo.num_queries,
-                          d + spec.pad)
+    dim = d + spec.pad
+    keys, noise = tenant_draws(k_fit, 1, dim, init_noise=spec.init_noise)
+    passes = (spec.refine_steps if cfg.refine_steps is None
+              else cfg.refine_steps)
+    dirs, refine = fleet_draws(keys, cfg.dfo.steps, cfg.dfo.num_queries, dim,
+                               refine_steps=passes,
+                               m=dfo.refine_sample_count(dim))
     pcfg = erm.ERMConfig(rows=cfg.rows, planes=cfg.planes,
                          dfo=_port_dfo(cfg.dfo))
-    got = erm.fit_surrogate(name, None, t(x), None if y is None else t(y),
-                            pcfg, params=params, directions=dirs,
-                            theta0_noise=noise[0], device=CPU)
+    got = erm.fit_surrogate(
+        name, None, t(x), None if y is None else t(y), pcfg, params=params,
+        directions=dirs, refine_samples=refine if passes else None,
+        theta0_noise=noise[0] if spec.init_noise else None, device=CPU)
     return got, want
 
 
@@ -271,17 +276,33 @@ def test_fit_surrogate_matches_jax_on_shared_draws(name):
 
 def test_experiments_anchors_reproduce_on_the_port():
     """EXPERIMENTS.md section "ERM spine" (n = 2000, d = 8, R = 1024,
-    200 DFO steps; the margins at p = 2, kmeans at p = 4): the port's
-    accuracies within 0.5 points and its density gain within 2% of the
-    JAX fits on the same data, hash families and draws."""
+    200 DFO steps; the margins at p = 2, kmeans and the regression at
+    p = 4): the port's accuracies within 0.5 points, its density gain within
+    2% and its regression MSE within 10% of the JAX fits on the same data,
+    hash families and draws.
+
+    The regression's 10% is the fit's own chaos: scaling the rows by
+    1 + k * 2^-23 (k = 1..8), a rounding-level change like the two
+    packages' differing unit-ball scaling, moves 51-70 sketch cells and the
+    port's MSE by -0.9% to +7.5%; port and JAX differ in 33 cells and 6.7%
+    (JAX: MSE 0.547, R^2 0.84, against the table's 0.92 and 0.73)."""
     n, d = 2000, 8
     rng = np.random.default_rng(0)
     x = rng.normal(size=(n, d)).astype(np.float32)
     w_true = rng.normal(size=(d,)).astype(np.float32)
-    rng.normal(size=(n,))  # the regression noise the benchmark draws here
+    noise = rng.normal(size=(n,)).astype(np.float32)
     yc = np.sign(x @ w_true).astype(np.float32)
     step_cfg = jdfo.DFOConfig(steps=200, num_queries=8, sigma=0.5,
                               learning_rate=1.0, decay=0.995)
+    # The regression row: y = x w + 0.05 noise, as the benchmark draws it.
+    yr = jnp.asarray(x) @ jnp.asarray(w_true) + 0.05 * jnp.asarray(noise)
+    cfg = jerm.ERMConfig(rows=1024, planes=4, dfo=step_cfg)
+    got, want = _surrogate_parity("prp_regression", jax.random.PRNGKey(0),
+                                  jnp.asarray(x), yr, cfg)
+    mse = float(torch.mean((t(x) @ got.theta[:d] - t(yr)) ** 2))
+    jmse = float(jnp.mean((jnp.asarray(x) @ want.theta[:d] - yr) ** 2))
+    assert abs(mse - jmse) <= 0.10 * jmse, (mse, jmse)
+    assert 1 - mse / float(jnp.var(yr)) > 0.7, mse
     for name, key in (("margin_classification", 2), ("logistic", 2)):
         cfg = jerm.ERMConfig(rows=1024, planes=2, dfo=step_cfg)
         got, want = _surrogate_parity(name, jax.random.PRNGKey(key),

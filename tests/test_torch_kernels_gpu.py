@@ -468,6 +468,71 @@ def test_wide_insert_unaligned_rows_and_empty_tiles(cuda, offset):
     assert torch.equal(got, ref.paired_hash_histogram(z, wp, mp))
 
 
+# The projection tile (the wide body, and kernel 7's tiled path below): every
+# pass layout of p (one pass of p planes up to 8, then passes of 5-8), tails
+# of d (chunks of 32 or 16 features), R (tiles of 64 rows) and n.
+_TILE_D = (33, 40, 63, 515, 4096)
+_TILE_P = (1, 4, 5, 8, 9, 30)
+_TILE_R = (1, 33, 1000, 2048)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [True, False], ids=["paired", "single"])
+@pytest.mark.parametrize("p", _TILE_P)
+@pytest.mark.parametrize("d", _TILE_D)
+def test_projection_tile_inserts_equal_plain_version(cuda, d, p, paired):
+    # R cycles through _TILE_R over the grid; p = 30 only at R = 1, whose
+    # table alone has 2^30 buckets. Lone and banked, partial masks.
+    r = 1 if p == 30 else _TILE_R[(_TILE_D.index(d) + _TILE_P.index(p)) % 4]
+    n = 1001 if d == 4096 else 3001
+    x, w, mask, lone, banked, plain, plain_banked = _wide_case(
+        paired, 31 * d + p, n, d, p, r, cuda)
+    before = lone.launches
+    got = lone(x, w, mask)
+    assert lone.launches == before + 1
+    assert torch.equal(got, plain(x, w, mask))
+    xb = torch.stack([x, x.flip(0)])
+    mb = torch.stack([mask, 1 - mask])
+    got_b = banked(xb, w, mb)
+    assert torch.equal(got_b, plain_banked(xb, w, mb))
+    assert torch.equal(got_b[0], got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [True, False], ids=["paired", "single"])
+@pytest.mark.parametrize("d,p,r,out", [
+    (40, 4, 2048, torch.int32), (64, 1, 33, torch.int16),
+    (515, 4, 1000, torch.int8), (4096, 5, 33, torch.int32),
+])
+def test_projection_tile_masks_views_and_outputs(cuda, d, p, r, out, paired):
+    # All-zero masks (zero tables, one launch), whole tiles masked out beside
+    # integer weights, int16/int8 outputs that saturate, and rows that start
+    # one float into their buffer, lone and banked (d % 4 == 0, so only the
+    # offset keeps the 16-byte copies off).
+    n = 2001 if d == 4096 else 100_003 if out == torch.int16 else 20_001
+    x, w, _, lone, banked, plain, plain_banked = _wide_case(
+        paired, d + p, n, d, p, r, cuda, masked=False)
+    zero = torch.zeros(n, device=cuda)
+    before = lone.launches
+    assert not lone(x, w, zero, out).any()
+    assert lone.launches == before + 1
+    mask = _weighted_mask(d * p, (n,), cuda)
+    mask[:1000] = 0
+    mask[5000:9000] = 0
+    buf = torch.empty(2 * x.numel() + 1, device=cuda)
+    xb = buf[1:].view((2,) + x.shape)
+    xb.copy_(torch.stack([x, x.flip(0)]))
+    assert xb.data_ptr() % 16 and xb[0].data_ptr() % 16
+    got = lone(xb[0], w, mask, out)
+    assert torch.equal(got, plain(x, w, mask, out))
+    if out != torch.int32:
+        assert int(got.max()) == torch.iinfo(out).max
+    mb = torch.stack([mask, zero])
+    got_b = banked(xb, w, mb, out)
+    assert torch.equal(got_b, plain_banked(xb, w, mb, out))
+    assert not got_b[1].any()
+
+
 @pytest.mark.gpu
 def test_wide_rows_sketch_bank_and_serve_on_the_card(cuda):
     # d > 32 through sketch_dataset, sketch_dataset_many and the gateway's
@@ -834,6 +899,30 @@ def test_srp_hash_kernel_equals_plain_version(cuda, n, d, r, p):
     assert torch.equal(got, ref.srp_hash(x, w))
     with pytest.raises(ValueError, match="p <= 30"):
         hash_kernel.srp_hash(x, torch.randn(31, d, r, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4, 8, 9, 30])
+@pytest.mark.parametrize("d", [1, 11, 12, 13, 31, 32, 33, 515, 4099])
+def test_srp_hash_paths_equal_plain_version(cuda, d, p):
+    # Both paths (the register path's exact widths 11 and 12 and its generic
+    # bodies; the projection tile past them) at R in {1, 33, 2048} and n in
+    # {0, 1, 63, 100 003}, one launch per non-empty call. Shapes whose plain
+    # version would run more than 2e11 multiply-adds are left out.
+    from repro_torch.kernels import srp_hash as hash_kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(37 * d + p)
+    for r in (1, 33, 2048):
+        w = torch.randn(p, d, r, generator=gen, device=cuda)
+        for n in (0, 1, 63, 100_003):
+            if n * d * r * p > 2e11:
+                continue
+            x = torch.randn(n, d, generator=gen, device=cuda)
+            before = hash_kernel.srp_hash.launches
+            got = hash_kernel.srp_hash(x, w)
+            assert hash_kernel.srp_hash.launches == before + (n > 0)
+            assert got.shape == (n, r) and got.dtype == torch.int32
+            assert torch.equal(got, ref.srp_hash(x, w)), (n, r)
 
 
 @contextlib.contextmanager

@@ -99,3 +99,21 @@ def test_init_srp_draws_from_the_generator():
     b = lsh.init_srp(torch.Generator().manual_seed(7), 8, 2, 5, device="cpu")
     assert torch.equal(a.projections, b.projections)
     assert (a.rows, a.planes, a.dim, a.buckets) == (8, 2, 5, 4)
+
+
+@pytest.mark.parametrize("seed,rows,planes", [(0, 7, 3), (1, 100, 1),
+                                              (2, 1000, 4), (3, 2048, 2)])
+def test_empirical_collision_rate_equals_jax(seed, rows, planes):
+    # Exact on shared params: the hits are integers and both scale by the
+    # fp32 reciprocal of R.
+    jp, tp = jax_params(seed, rows, planes, 6)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(40, 6)).astype(np.float32)
+    y = (x + rng.normal(size=(40, 6)) * np.linspace(0.0, 2.0, 40)[:, None]
+         ).astype(np.float32)
+    want = np.asarray(jlsh.empirical_collision_rate(
+        jp, jnp.asarray(x), jnp.asarray(y), planes))
+    got = lsh.empirical_collision_rate(tp, t(x), t(y), planes)
+    assert got.dtype == torch.float32 and got.shape == (40,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert float(got[0]) == 1.0  # y[0] == x[0]

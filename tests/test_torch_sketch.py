@@ -31,6 +31,38 @@ def test_sketch_dataset_equals_jax(engine):
     np.testing.assert_array_equal(got.counts.numpy(), np.asarray(want.counts))
 
 
+@pytest.mark.parametrize("dtype", ["int32", "int16", "int8"])
+def test_insert_and_prp_insert_equal_jax(dtype):
+    # Counts exact: the codes agree (no projection is a sign tie at these
+    # draws, which the test checks), so every cell does; int8 saturates.
+    jp, tp = jax_params(7, 24, 2, 6)
+    z = unit_ball_rows(7, 200, 4)
+    x = np.concatenate([z, np.zeros((200, 1), np.float32),
+                        np.linalg.norm(z, axis=1, keepdims=True)], 1)
+    np.testing.assert_array_equal(lsh.srp_codes(tp, t(x)).numpy(),
+                                  np.asarray(jlsh.srp_codes(jp, jnp.asarray(x))))
+    jdt = jnp.dtype(dtype)
+    for batches in ((200,), (70, 130)):
+        want = jsk.init_sketch(24, 4, jdt)
+        got = sketch.init_sketch(24, 4, getattr(torch, dtype), device=CPU)
+        wantp, gotp = want, got
+        start = 0
+        for b in batches:
+            zb, xb = z[start:start + b], x[start:start + b]
+            want = jsk.insert(want, jp, jnp.asarray(xb))
+            got = sketch.insert(got, tp, t(xb))
+            wantp = jsk.prp_insert(wantp, jp, jnp.asarray(zb))
+            gotp = sketch.prp_insert(gotp, tp, t(zb))
+            start += b
+        for g, w_ in ((got, want), (gotp, wantp)):
+            assert g.counts.dtype == getattr(torch, dtype)
+            assert int(g.n) == int(w_.n) == 200
+            np.testing.assert_array_equal(g.counts.numpy(),
+                                          np.asarray(w_.counts))
+    if dtype == "int8":
+        assert int(gotp.counts.max()) == 127
+
+
 @pytest.mark.parametrize("dtype", ["int16", "int8"])
 def test_narrow_sketch_saturates_like_jax(dtype):
     jp, tp = jax_params(1, 8, 1, 4)  # two buckets: cells overflow int8 fast

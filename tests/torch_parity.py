@@ -1,4 +1,5 @@
-"""Shared helpers of the ``test_torch_*`` parity tests.
+"""Shared helpers of the ``test_torch_*`` parity tests (and of
+``scripts/reference_quality.py``).
 
 ``jax.random`` draws cannot be reproduced by torch, so these helpers draw
 what the JAX package draws (hash families, DFO sphere directions, refine
@@ -74,3 +75,85 @@ def tenant_draws(key, tenants: int, dim: int, init_noise: bool):
             noise.append(np.asarray(jax.random.normal(k_init, (dim,))))
         keys.append(kt)
     return jnp.stack(keys), (t(np.stack(noise)) if init_noise else None)
+
+
+def regression_draw(seed: int, n: int, d: int, noise: float,
+                    condition: float):
+    """``datasets.make_regression``'s distribution drawn with numpy: features
+    with covariance eigenvalues log-spaced over ``condition`` (mean 1) under
+    a random rotation, ``y = x theta + noise eps``. Returns float32
+    ``(x, y)``."""
+    rng = np.random.default_rng(seed)
+    eigs = np.logspace(0.0, np.log10(condition), d)
+    eigs /= eigs.mean()
+    rot, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    x = (rng.normal(size=(n, d)) * np.sqrt(eigs)) @ rot.T
+    y = x @ rng.normal(size=d) + noise * rng.normal(size=n)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def regression_fit_pair(key, x: np.ndarray, y: np.ndarray, cfg):
+    """JAX's ``regression.fit`` and the port's on the CPU, on the same
+    arrays, hash family and DFO draws (drawn from ``key`` as the reference
+    draws them). ``cfg`` is the reference's ``StormRegressorConfig``; the
+    port runs the same fields. Returns ``{"jax": ..., "port": ...}``, each
+    ``{"mse", "r2", "cos_ols", "sketch_loss"}`` on ``(x, y)``, and the
+    number of sketch cells the two builds put in other buckets
+    (``moved``)."""
+    import dataclasses
+
+    from repro.core import regression as jregression
+    from repro_torch.core import baselines, dfo, regression
+
+    want = jregression.fit(key, jnp.asarray(x), jnp.asarray(y), cfg)
+    k_hash, k_dfo = jax.random.split(key)
+    d = x.shape[1]
+    params = interop.lsh_params(np.asarray(jlsh.init_srp(
+        k_hash, cfg.rows, cfg.planes, d + 3).projections), CPU)
+    dirs, refine = fleet_draws(k_dfo[None], cfg.dfo.steps,
+                               cfg.dfo.num_queries, d + 1,
+                               refine_steps=cfg.refine_steps,
+                               m=dfo.refine_sample_count(d + 1))
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(cfg) if f.name != "dfo"}
+    pcfg = regression.StormRegressorConfig(
+        **fields, dfo=dfo.DFOConfig(**dataclasses.asdict(cfg.dfo)))
+    xt, yt = t(x), t(y)
+    got = regression.fit(None, xt, yt, pcfg, params=params, directions=dirs,
+                         refine_samples=refine, device=CPU)
+    ols = baselines.ols(xt, yt).theta
+    var = float(yt.var(correction=0))
+    out = {}
+    for name, theta, mse, loss in (
+        ("jax", t(want.theta), float(want.mse(jnp.asarray(x),
+                                               jnp.asarray(y))),
+         float(want.fleet_losses[0])),
+        ("port", got.theta, float(got.mse(xt, yt)),
+         float(got.fleet_losses[0])),
+    ):
+        out[name] = {"mse": mse, "r2": 1.0 - mse / var,
+                     "cos_ols": float(theta @ ols / (theta.norm() * ols.norm()
+                                                     + 1e-12)),
+                     "sketch_loss": loss}
+    moved = np.abs(got.sketch.counts.numpy().astype(np.int64)
+                   - np.asarray(want.sketch.counts)).sum() // 2
+    return out, int(moved)
+
+
+def quality_cases(rows_a: int, rows_b: int):
+    """The cases of ``scripts/reference_quality.py``: ``(label, seed, n, d,
+    noise, condition, config)``, the airfoil-matched draw on ``rows_a`` rows
+    and phase 15's d = 40 shape (small steps, defaults) on ``rows_b``."""
+    from repro.core import dfo as jdfo
+    from repro.core import regression as jregression
+
+    # Phase 15's steps at d = 40 (chip_smoke.py: WIDE_*).
+    small = jregression.StormRegressorConfig(
+        rows=4096,
+        dfo=jdfo.DFOConfig(steps=400, num_queries=32, sigma=0.15,
+                           sigma_decay=0.995, learning_rate=0.25, decay=0.995,
+                           average_tail=0.5))
+    default = jregression.StormRegressorConfig()
+    return (("airfoil-matched d=9 default", 0, rows_a, 9, 0.3, 30.0, default),
+            ("d=40 small steps", 1, rows_b, 40, 0.2, 10.0, small),
+            ("d=40 default", 1, rows_b, 40, 0.2, 10.0, default))
