@@ -65,11 +65,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
     versions (which must give the same fit bit for bit) and through the
     scan engine, on the same draws.
 11. timings (run last): device time per launch of each of the seven
-    kernels and its plain version at the shapes above, beside the least time
+    kernels (and of the queries' f32 variants: lone at m = 17, banked at
+    the private gateway's 512 slots) and its plain version at the shapes
+    above, beside the least time
     the card could take (the four inserts, kernels 1, 3, 4 and 5, over three
     profiler runs: min, median and max, and every kernel record); kernel 3
-    at the kmeans shape (d = 11, p = 4) on its own line; both queries at
-    m in {17, 272, 512, 4096}, and both inserts on the wide body and
+    at the kmeans shape (d = 11, p = 4) on its own line; both queries and
+    their f32 variants at m in {17, 272, 512, 4096}, and both inserts on the wide body and
     kernel 7 on its tiled path (d = 515, n = 2^16, R = 2048, p = 4; the
     profiler beside CUDA events), each beside its bound and its no-FMA
     floor; where the
@@ -106,6 +108,40 @@ Phases, each of which raises on failure (exit code 1, no result line):
     run, and through the kernels' plain versions (the same fit bit for bit);
     its train MSE and R^2 are printed, and its device time under the
     profiler (the insert's on the projection tile).
+16. privacy: the queries' f32 variants (``sketch_query_f32``,
+    ``sketch_query_banked_f32``) against their plain versions on f32
+    tables of both signs and magnitudes 1e-2 to 1e10 (R in {1, 33, 2048},
+    p in {1, 4, 9}, m in {0, 1, 17, 272, 512, 4096}, lone and banked):
+    two launches give the same bits, each point within 2^-22 mean|x| of
+    the plain version, integer-valued tables bit for bit against the
+    integer body; at the main path's shapes (the private gateway's 16
+    lanes at its 512 slots, one lane at a fit's 17 points); a release of
+    phase 5's sketch at eps = 1 (``privatize_counts``, ``query_private``,
+    the f32 kernel) beside the exact query; the private ``StormGateway``
+    at phase 13's configuration, 64 rounds under ReleasePolicy(48, 1)
+    (rounds 32-39 without ingest; cohort fits over tenants 0-3 and over
+    tenant 5 alone), once refusing and once stale on exhaustion: the
+    ledger, statuses, lanes and fits against a host replay on a second
+    view of the same seed, every served point against a standalone banked
+    f32 query of its release, every fit against the offline
+    ``erm.fit_many`` over its released sub-bank, one private tick = one
+    banked insert and one banked f32 query, ``trace_count`` <= 4,
+    ``tick_start`` under sync debug mode 'error', depth 2 and 3 against
+    the synchronous loop, ``mode="ref"`` (statuses and spends equal,
+    estimates within the bound); the tiered private gateway (phase 14's
+    64 tenants over 16 int16 slots, stale): ledger keys are global
+    tenants, depth 2 equals sync, ``trace_count`` <= 5; then private
+    ticks/s, host time in ``tick_start`` and the device time of a private
+    tick under the profiler.
+17. wire: a ``StormWireServer`` on 127.0.0.1 over a 4-tenant card gateway
+    at phase 13's widths; the port's client ingests 8 x 2048 rows per
+    tenant, each followed by a 17-point query that must equal a
+    standalone query of the tenant's lone sketch bit for bit, then a
+    cohort fit (against the offline fit) and ``stats``; private servers:
+    ``budget`` frames drain as the ledger does, a spent tenant's query is
+    a terminal ``budget_exceeded`` (``BudgetExceeded``) or, on a stale
+    server, a result marked ``"stale"``; ``budget`` is ``None`` without a
+    policy.
 
 The last two lines are the card (nvidia-smi's name and power limit) and
 ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
@@ -193,6 +229,18 @@ GW_PROFILE_TICKS = 64
 TIERED_TENANTS, TIERED_HOT, TIERED_ROUNDS, TIERED_DRAWS = 64, 16, 128, 16
 TIERED_ROWS, TIERED_POINTS = GW_INGEST_RATE // 4, 4
 ZIPF_EXPONENT, TIERED_PROMOTE_PER_TICK = 1.1, 4
+# The private gateway (phase 16) at the gateway's width: 64 rounds of
+# synth_traffic under ReleasePolicy(epsilon_total=48, epsilon_release=1);
+# rounds 32-39 carry no ingest, so their reads re-read open windows for
+# free. A 50-step cohort fit over tenants 0-3 every 16 rounds and one over
+# tenant 5 alone (the lone f32 query) every 16 rounds from round 8.
+PRIV_ROUNDS, PRIV_NO_INGEST = 64, range(32, 40)
+PRIV_EPS_TOTAL, PRIV_EPS_RELEASE, PRIV_FIT_EVERY = 48.0, 1.0, 16
+PRIV_LONE_TENANT, PRIV_PROFILE_TICKS = 5, 16
+# The wire (phase 17): 4 tenants at the gateway's widths, 8 requests of
+# 2048 rows each, a 17-point query after each.
+WIRE_TENANTS, WIRE_CHUNKS, WIRE_POINTS = 4, 8, 17
+
 
 
 @contextlib.contextmanager
@@ -339,6 +387,86 @@ def check_queries(log, reports, script, gw_mod, w, paired, ops, sketch_lib,
                                  f"differs from the standalone query")
     return len(log.placements)
 
+def privacy_script(serve, gw_mod, seed, rounds, tenants, dim, fits=True):
+    """Per-round requests of the private gateway: ``synth_traffic`` with no
+    ingest in ``PRIV_NO_INGEST``, and the cohort fits."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rids = itertools.count()
+    script = []
+    for i in range(rounds):
+        ingest = 0 if i in PRIV_NO_INGEST else GW_INGEST_RATE
+        reqs = serve.synth_traffic(rng, rids, tenants, dim, ingest,
+                                   GW_QUERY_RATE)
+        if fits and (i + 1) % PRIV_FIT_EVERY == 0:
+            reqs.append(gw_mod.FitRequest(
+                rid=next(rids), tenants=list(GW_FIT_COHORT), seed=i,
+                steps=GW_FIT_STEPS))
+        if fits and (i + 1) % PRIV_FIT_EVERY == PRIV_FIT_EVERY // 2:
+            reqs.append(gw_mod.FitRequest(
+                rid=next(rids), tenants=[PRIV_LONE_TENANT], seed=i,
+                steps=GW_FIT_STEPS))
+        script.append(reqs)
+    return script
+
+
+def replay_private(privacy_lib, policy, seed, log, reports):
+    """The gateway's read planning replayed on the host with a second view
+    of the same seed, from what the gateway was seen to do: per tick, the
+    slots it read (placed points, or refused requests), the counter
+    versions (the device n behind the tick's ingest) and the fits it
+    gathered. Returns ``(view, plans, fit_plans)``: ``plans[tick]`` is
+    ``{slot: plan}``, ``fit_plans[rid]`` the plans of a fit's members (the
+    last one ``"refuse"`` for a refused fit)."""
+    view = privacy_lib.PrivateBankView(policy, seed=seed)
+    read = {}
+    for tick, _, _, slot, _ in log.placements:
+        read.setdefault(tick, set()).add(slot)
+    for rep in reports:
+        for r in rep.results:
+            if r.status == "refused":
+                read.setdefault(rep.tick, set()).add(r.tenant)
+    fits_at = {}
+    for rid, (tick, req, _, _) in log.fits.items():
+        fits_at.setdefault(tick, []).append(req)
+    plans, fit_plans = {}, {}
+    for tick in sorted(log.snaps):
+        versions = log.snaps[tick][1].tolist()
+        shape = tuple(log.snaps[tick][0].shape[1:])
+        plans[tick] = {slot: view.plan_read(slot, versions[slot], shape)
+                       for slot in sorted(read.get(tick, ()))}
+        for slot, plan in plans[tick].items():
+            if plan.status == "fresh":
+                view.mark_resident(slot)
+        for req in fits_at.get(tick, ()):
+            fit_plans[req.rid] = []
+            for t in req.tenants:
+                fit_plans[req.rid].append(view.plan_read(t, versions[t],
+                                                         shape))
+                if fit_plans[req.rid][-1].status == "refuse":
+                    break
+    return view, plans, fit_plans
+
+
+class PrivateLog(TickLog):
+    """``TickLog`` of a private gateway: also the lanes and release-time
+    counts right behind each tick's body, and each fit's gathered sub-bank
+    and status."""
+
+    def __init__(self, gw):
+        super().__init__(gw)
+        self.lanes = {}  # tick -> (lanes, n_used)
+        self.fits = {}   # rid -> (tick, request, sub-bank or None, status)
+
+    def __call__(self, fl):
+        super().__call__(fl)
+        self.lanes[fl.tick] = (self.gw._release.clone(),
+                               self.gw._n_used.clone())
+        for req, sub, status in fl.fits:
+            self.fits[req.rid] = (fl.tick, req, sub, status)
+
+
 def _log(*args) -> None:
     print(*args, flush=True)
 
@@ -459,6 +587,38 @@ def _gateway_profile(torch, gw, script):
          f"({seen['paired_hist_kernel']} records), query "
          f"{per_tick['sketch_query_kernel']:.4f} ms "
          f"({seen['sketch_query_kernel']} records)")
+
+
+def _private_profile(torch, gw, script):
+    """Device time per full private tick of ``PRIV_PROFILE_TICKS``
+    pipelined ticks under the profiler: the insert, the f32 query, the
+    host->device transfer and the rest of the private body (the release's
+    elementwise work and the estimates' masking)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    drive(gw, script[:4])  # warm-up
+    rounds = script[4:4 + PRIV_PROFILE_TICKS]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        reps, *_ = drive(gw, rounds, depth=2, drain=False)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - start)
+    events = _device_events(prof)
+    busy = sum(us for _, us in events) / 1e3
+    parts = {"insert": 0.0, "query": 0.0, "copy": 0.0, "release": 0.0}
+    for name, us in events:
+        key = ("insert" if _kernel_named("paired_hist_kernel", name) else
+               "query" if _kernel_named("sketch_query_kernel", name) else
+               "copy" if "memcpy" in name.lower() else "release")
+        parts[key] += us / 1e3
+    n = max(len(reps), 1)
+    _log(f"[time] private gateway under the profiler: {len(reps)} full "
+         f"pipelined ticks, {wall:.3f} ms wall, device busy {busy:.3f} ms "
+         f"({100 * busy / wall:.2f}%); per tick: device {busy / n:.4f} ms = "
+         f"insert {parts['insert'] / n:.4f} + f32 query "
+         f"{parts['query'] / n:.4f} + transfers {parts['copy'] / n:.4f} + "
+         f"release and masking {parts['release'] / n:.4f} ms; the private "
+         f"body {(parts['query'] + parts['release']) / n:.4f} ms")
 
 
 def _sm_max_mhz() -> int:
@@ -584,6 +744,8 @@ def main() -> int:
             insert_kernel.paired_hash_histogram_banked,
         "hash_histogram_banked": insert_kernel.hash_histogram_banked,
         "sketch_query_banked": query_kernel.sketch_query_banked,
+        "sketch_query_f32": query_kernel.sketch_query_f32,
+        "sketch_query_banked_f32": query_kernel.sketch_query_banked_f32,
     }
     errs = {name: 0.0 for name in counters}
 
@@ -1546,6 +1708,551 @@ def main() -> int:
                  ("projection_tile_kernel", "sketch_query_kernel"))
     del xw, yw
 
+    # -- 16. privacy: the f32 queries, a release, the private gateways ---------
+    from repro_torch.core import privacy as privacy_lib
+
+    pgen = generator(SEED + 3, dev)  # a fourth stream: earlier draws stay
+
+    def f32_tables(lead, rows_q, p_q):
+        """Non-integer f32 tables of both signs, magnitudes 1e-2 to 1e10."""
+        shape = lead + (rows_q, 1 << p_q)
+        mag = 10.0 ** (torch.rand(shape, generator=pgen, device=dev) * 12 - 2)
+        sign = torch.where(torch.rand(shape, generator=pgen, device=dev)
+                           < 0.3, -1.0, 1.0)
+        return (mag * sign).to(torch.float32)
+
+    def f32_gap(got, want, scale):
+        """max |got - want| / (2^-22 * mean|x|): at most 1 within the bound
+        (``scale``: the plain query over |x|)."""
+        if not got.numel():
+            return 0.0
+        gap = (got.double() - want.double()).abs() / (
+            2.0 ** -22 * scale.double())
+        gap = torch.where(got.double() == want.double(), 0.0, gap)
+        return float(gap.max())
+
+    worst = 0.0
+    for rows_q, p_q, m, banked in itertools.product(
+            (1, 33, 2048), (1, 4, 9), (0, 1, 17, 272, 512, 4096),
+            (False, True)):
+        wq = torch.randn(p_q, dim, rows_q, generator=pgen, device=dev)
+        tq = f32_tables((3,), rows_q, p_q)
+        q = torch.randn(m, dim, generator=pgen, device=dev)
+        ci = torch.randint(-(1 << 20), 1 << 20, tq.shape, generator=pgen,
+                           device=dev, dtype=torch.int32)
+        if banked:
+            idx = torch.randint(0, 3, (m,), generator=pgen, device=dev)
+            kern = query_kernel.sketch_query_banked_f32
+            call = lambda c: query_kernel.sketch_query_banked(q, wq, c, idx)
+            plain = lambda c: ref.sketch_query_banked(q, wq, c, idx)
+        else:
+            kern = query_kernel.sketch_query_f32
+            call = lambda c: query_kernel.sketch_query(q, wq, c[1])
+            plain = lambda c: ref.sketch_query(q, wq, c[1])
+        before = kern.launches
+        got, again = call(tq), call(tq)
+        gap = f32_gap(got, plain(tq), plain(tq.abs()))
+        same_int = torch.equal(call(ci.float()), call(ci))
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and gap <= 1.0 and same_int
+                and kern.launches == before + 3 * (m > 0)):
+            raise AssertionError(
+                f"f32 query (banked={banked}) at R={rows_q} p={p_q} m={m}: "
+                f"repeat equal {torch.equal(got, again)}, gap {gap}, "
+                f"integer-valued equal {same_int}")
+        worst = max(worst, gap)
+    _log(f"[privacy] f32 queries, lone and banked, R in {{1, 33, 2048}}, p "
+         f"in {{1, 4, 9}}, m in {{0, 1, 17, 272, 512, 4096}} on tables of "
+         f"magnitudes 1e-2..1e10: two launches give the same bits; max "
+         f"|kernel - plain| / (2^-22 mean|x|) = {worst:.4f} (bound 1); "
+         f"integer-valued tables equal the integer body bit for bit")
+
+    # The main path's shapes: the private gateway's lanes (16 tenants'
+    # releases at eps = 1 over phase 7's bank) at its 512 slots, and one
+    # lane at a lone fit's 17 points.
+    f32_lanes = warm.counts.to(torch.float32) + privacy_lib.count_noise(
+        pgen, warm.counts.shape, PRIV_EPS_RELEASE, cfg.rows, device=dev)
+    m_gw = TENANTS * GW_QUERY_SLOTS
+    q_gw = lsh.augment_query(lsh.normalize_query(torch.randn(
+        m_gw, dim - 2, generator=pgen, device=dev))).contiguous()
+    idx_gw = torch.repeat_interleave(torch.arange(
+        TENANTS, dtype=torch.int32, device=dev), GW_QUERY_SLOTS)
+    q_fit = q_gw[:2 * cfg.dfo.num_queries + 1].contiguous()
+    for name, got, want, scale in (
+        ("sketch_query_banked_f32",
+         query_kernel.sketch_query_banked(q_gw, w, f32_lanes, idx_gw),
+         ref.sketch_query_banked(q_gw, w, f32_lanes, idx_gw),
+         ref.sketch_query_banked(q_gw, w, f32_lanes.abs(), idx_gw)),
+        ("sketch_query_f32", query_kernel.sketch_query(q_fit, w, f32_lanes[0]),
+         ref.sketch_query(q_fit, w, f32_lanes[0]),
+         ref.sketch_query(q_fit, w, f32_lanes[0].abs())),
+    ):
+        gap = f32_gap(got, want, scale)
+        err = float((got - want).abs().max())
+        errs[name] = max(errs[name], err)
+        _log(f"[privacy] {name} at m={got.numel()} on released tables: "
+             f"max|err| {err:g} against the plain version ({gap:.4f} of "
+             f"the bound 2^-22 mean|x|)")
+        if gap > 1.0:
+            raise AssertionError(f"{name} at the main path's shape")
+
+    # A standalone release of phase 5's 2^22-row sketch at eps = 1, read at
+    # the zero model (theta = 0, the label's -1) beside the exact query.
+    big = fit_kernel.sketch
+    release = privacy_lib.privatize_counts(pgen, big, 1.0)
+    theta0 = torch.zeros(dim - 2, device=dev)
+    theta0[-1] = -1.0
+    codes0 = lsh.query_codes(params, theta0[None])
+    exact0 = float(sketch_lib.query(big, codes0, paired=True)[0])
+    private0 = float(privacy_lib.query_private(release, codes0)[0])
+    before = query_kernel.sketch_query_f32.launches
+    kernel0 = ops.query_theta_with_weights(release, w, theta0[None])
+    scale0 = ref.sketch_query(lsh.augment_query(lsh.normalize_query(
+        theta0[None])), w, release.counts.abs()) / sketch_lib.denominator(
+        release.n, True)
+    gap0 = f32_gap(kernel0, torch.tensor([private0], device=dev), scale0)
+    errs["sketch_query_f32"] = max(errs["sketch_query_f32"], abs(
+        float(kernel0[0]) - private0))
+    _log(f"[privacy] release of the {N_ROWS}-row sketch at eps=1 (Laplace "
+         f"scale {2 * cfg.rows}): query at theta=0: exact {exact0:.8f}, "
+         f"query_private {private0:.8f}, f32 kernel {float(kernel0[0]):.8f}"
+         f" ({query_kernel.sketch_query_f32.launches - before} launch; "
+         f"gap {gap0:.4f} of the bound)")
+    # Laplace(b) noise has variance 2 b^2; the mean over R cells, divided
+    # by 2n, has standard deviation sqrt(2) b / sqrt(R) / (2n).
+    sd0 = (2 ** 0.5 * 2 * cfg.rows / cfg.rows ** 0.5
+           / (2 * max(int(big.n), 1)))
+    _log(f"[privacy] |query_private - exact| = {abs(private0 - exact0):.3g}"
+         f" ({abs(private0 - exact0) / sd0:.3f} standard deviations of the "
+         f"noise)")
+    if not (gap0 <= 1.0 and abs(private0 - exact0) <= 6 * sd0
+            and query_kernel.sketch_query_f32.launches == before + 1):
+        raise AssertionError("the standalone release's query")
+    del release
+
+    # The flat private gateway at phase 13's configuration, twice.
+    p_script = privacy_script(storm_serve, gw_mod, SEED + 16, PRIV_ROUNDS,
+                              TENANTS, gw_dim)
+    gw_shape = (cfg.rows, 1 << cfg.planes)
+    f32_names = ("sketch_query_f32", "sketch_query_banked_f32")
+
+    def private_gateway(on_exhaust, mode="auto", total=PRIV_EPS_TOTAL):
+        pol = privacy_lib.ReleasePolicy(epsilon_total=total,
+                                        epsilon_release=PRIV_EPS_RELEASE,
+                                        on_exhaust=on_exhaust)
+        gwp = gw_mod.StormGateway(
+            params, TENANTS, query_slots=GW_QUERY_SLOTS,
+            ingest_slots=GW_INGEST_SLOTS, mode=mode, bank=warm, privacy=pol,
+            privacy_seed=SEED + 16, device=dev)
+        return gwp, pol
+
+    tick_deltas = []
+
+    @contextlib.contextmanager
+    def counted_sync_free():
+        """``tick_start`` under sync debug mode 'error', with the launches
+        it makes."""
+        before = {name: c.launches for name, c in counters.items()}
+        with no_host_sync(torch):
+            yield
+        tick_deltas.append({name: c.launches - before[name]
+                            for name, c in counters.items()})
+
+    private_runs = {}
+    for on_exhaust in ("refuse", "stale"):
+        gwp, pol = private_gateway(on_exhaust)
+        plog = PrivateLog(gwp)
+        tick_deltas.clear()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        p_reports, p_lat, p_starts = drive(gwp, p_script, on_start=plog,
+                                           guard=counted_sync_free)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = {name: c.launches for name, c in counters.items()}
+        if on_exhaust == "refuse":
+            for name in f32_names:
+                launches[name] = run_launches[name]
+                if not run_launches[name]:
+                    raise AssertionError(f"the private gateway never "
+                                         f"launched {name}")
+        view2, plans, fit_plans = replay_private(
+            privacy_lib, pol, SEED + 16, plog, p_reports)
+        # The ledger and the views: the same spends, releases and windows.
+        if gwp.private_view.summary() != view2.summary():
+            raise AssertionError(f"{on_exhaust}: the ledger differs from "
+                                 f"the host replay")
+        status_of = {"fresh": "ok", "stale": "stale", "refuse": "refused"}
+        qreq = {r.rid: (k, r) for k, reqs in enumerate(p_script, start=1)
+                for r in reqs if isinstance(r, gw_mod.QueryRequest)}
+        results = {r.rid: r for rep in p_reports for r in rep.results}
+        if results.keys() != qreq.keys():
+            raise AssertionError(f"{on_exhaust}: not every query completed "
+                                 f"once")
+        want_status = {rep_r.rid: "refused" for rep in p_reports
+                       for rep_r in rep.results
+                       if plans[rep.tick].get(rep_r.tenant) is not None
+                       and plans[rep.tick][rep_r.tenant].status == "refuse"}
+        for tick, rid, _, t, _ in plog.placements:
+            got = status_of[plans[tick][t].status]
+            if want_status.get(rid, "ok") != "stale":
+                want_status[rid] = got
+        counts_by_status = {}
+        for rid in qreq:
+            want = want_status[rid]
+            counts_by_status[want] = counts_by_status.get(want, 0) + 1
+            if results[rid].status != want:
+                raise AssertionError(f"{on_exhaust}: query {rid} is "
+                                     f"{results[rid].status}, not {want}")
+        # The releases: each tick's lanes against the replay's expected
+        # release, and every served point against a standalone banked f32
+        # query of that release.
+        lane = torch.zeros((TENANTS,) + gw_shape, device=dev)
+        expect = {}
+        for tick in sorted(plog.snaps):
+            counts_k = plog.snaps[tick][0]
+            n_used = torch.zeros(TENANTS, dtype=torch.int32, device=dev)
+            for slot, plan in plans[tick].items():
+                n_used[slot] = plan.n
+                if plan.status == "fresh":
+                    lane[slot] = counts_k[slot].to(torch.float32) + \
+                        torch.from_numpy(plan.noise).to(dev)
+            got_lanes, got_n = plog.lanes[tick]
+            read = [slot for slot, plan in plans[tick].items()
+                    if plan.status != "refuse"]
+            if read and not (torch.equal(got_lanes, lane)
+                             and torch.equal(got_n[read], n_used[read])):
+                raise AssertionError(f"{on_exhaust}: tick {tick}'s lanes "
+                                     f"differ from the replay's releases")
+            expect[tick] = (lane.clone(), n_used)
+        served = 0
+        for tick, rid, off, t, take in plog.placements:
+            lanes_k, n_used = expect[tick]
+            th = torch.from_numpy(qreq[rid][1].thetas[off:off + take]).to(dev)
+            want = ops.query_theta_with_weights(
+                sketch_lib.SketchBank(counts=lanes_k, n=n_used), w, th,
+                sketch_idx=torch.full((take,), t, dtype=torch.int32,
+                                      device=dev))
+            if not (want.cpu().numpy()
+                    == results[rid].losses[off:off + take]).all():
+                raise AssertionError(f"{on_exhaust}: query {rid} (tick "
+                                     f"{tick}) differs from the standalone "
+                                     f"query of its release")
+            served += take
+        # The fits: status and sub-bank against the replay, then the
+        # offline fit_many over that sub-bank.
+        fits = {f.rid: f for rep in p_reports for f in rep.fits}
+        if fit_plans.keys() != fits.keys():
+            raise AssertionError(f"{on_exhaust}: fits {sorted(fits)} ran, "
+                                 f"{sorted(fit_plans)} were gathered")
+        for rid, member_plans in fit_plans.items():
+            tick, req, sub, status = plog.fits[rid]
+            statuses = [pl.status for pl in member_plans]
+            want_status = ("refused" if "refuse" in statuses else
+                           "stale" if "stale" in statuses else "ok")
+            if not (status == fits[rid].status == want_status):
+                raise AssertionError(f"{on_exhaust}: fit {rid} is "
+                                     f"{fits[rid].status}, not {want_status}")
+            if status == "refused":
+                if fits[rid].theta.any():
+                    raise AssertionError("a refused fit carries a theta")
+                continue
+            counts_k = plog.snaps[tick][0]
+            lanes_k = plog.lanes[tick][0]
+            want_sub = torch.stack([
+                counts_k[t].to(torch.float32) + torch.from_numpy(
+                    pl.noise).to(dev) if pl.status == "fresh" else lanes_k[t]
+                for t, pl in zip(req.tenants, member_plans)])
+            offline = erm.fit_many(
+                req.surrogate, sub, params,
+                dfo.DFOConfig(steps=req.steps, num_queries=req.num_queries,
+                              sigma=req.sigma, learning_rate=req.learning_rate,
+                              decay=req.decay),
+                restarts=req.restarts, l2=req.l2,
+                refine_steps=req.refine_steps,
+                generator=generator(req.seed, dev), device=dev)
+            if not (torch.equal(sub.counts, want_sub)
+                    and sub.n.tolist() == [pl.n for pl in member_plans]
+                    and np.array_equal(fits[rid].theta,
+                                       offline.theta.cpu().numpy())
+                    and np.array_equal(fits[rid].fleet_losses,
+                                       offline.fleet_losses.cpu().numpy())):
+                raise AssertionError(f"{on_exhaust}: fit {rid} differs from "
+                                     f"the offline fit_many over its release")
+        # One private tick with rows and points: one banked insert and one
+        # banked f32 query, nothing else launched in tick_start.
+        full_ticks = [d for d, rep in zip(tick_deltas, p_reports)
+                      if rep.rows_ingested and rep.points_served]
+        want_delta = dict.fromkeys(counters, 0)
+        want_delta.update(paired_hash_histogram_banked=1,
+                          sketch_query_banked_f32=1)
+        if not full_ticks or any(d != want_delta for d in full_ticks):
+            raise AssertionError(f"{on_exhaust}: a private tick launched "
+                                 f"{full_ticks[:1]}")
+        if gwp.trace_count > 4 or {sig[0] for sig in gwp._signatures} != {
+                "ingest", "private"}:
+            raise AssertionError(f"private bodies: {gwp._signatures}")
+        priv = gwp.queue_stats()["privacy"]
+        _log(f"[privacy] {on_exhaust}: {gwp.ticks} ticks in {run_s:.3f} s "
+             f"(tick_start under sync debug mode 'error'), {served} points; "
+             f"statuses {counts_by_status}; {priv['releases']} releases, "
+             f"{len(priv['exhausted'])} tenants exhausted, "
+             f"{priv['queries_refused']} queries and {priv['fits_refused']} "
+             f"fits refused; ledger, statuses, lanes and "
+             f"{len(fit_plans)} fits equal the host replay; served points "
+             f"equal standalone banked f32 queries of their release; fits "
+             f"equal the offline fit_many; one private tick: {want_delta}; "
+             f"trace_count {gwp.trace_count}; launches {run_launches}")
+        if on_exhaust == "refuse" and not (counts_by_status.get("refused")
+                                           and priv["fits_refused"]):
+            raise AssertionError("the refuse run refused nothing")
+        if on_exhaust == "stale" and not counts_by_status.get("stale"):
+            raise AssertionError("the stale run served nothing stale")
+        private_runs[on_exhaust] = (p_reports, plog, gwp, p_lat, p_starts)
+
+    # Pipelined at depth 2 and 3 against the synchronous loop (stale).
+    s_reports, slog, sgw = private_runs["stale"][:3]
+    s_keys = [report_key(r) for r in s_reports]
+    for depth in (2, 3):
+        gpp, _ = private_gateway("stale")
+        reps, *_ = drive(gpp, p_script, depth=depth,
+                         guard=lambda: no_host_sync(torch))
+        if not ([report_key(r) for r in reps] == s_keys
+                and torch.equal(gpp.bank.counts, sgw.bank.counts)
+                and torch.equal(gpp._release, sgw._release)
+                and gpp.private_view.summary() == sgw.private_view.summary()):
+            raise AssertionError(f"private depth {depth} differs from sync")
+        _log(f"[privacy] depth {depth}: {len(reps)} reports, counters, "
+             f"lanes and ledger equal the sync loop")
+    del gpp
+    # The plain versions (mode="ref"): statuses and spends equal; estimates
+    # within 2^-22 mean|x| / denom + 2^-23 |est| (both sum in float64, in
+    # other orders).
+    gref, _ = private_gateway("stale", mode="ref")
+    r_reports, *_ = drive(gref, p_script)
+    r_results = {r.rid: r for rep in r_reports for r in rep.results}
+    s_results = {r.rid: r for rep in s_reports for r in rep.results}
+    worst = 0.0
+    for tick, rid, off, t, take in slog.placements:
+        lanes_k, n_used = slog.lanes[tick]
+        th = torch.from_numpy(qreq[rid][1].thetas[off:off + take]).to(dev)
+        qa = lsh.augment_query(lsh.normalize_query(th))
+        scale = ref.sketch_query(qa, w, lanes_k[t].abs()).double() / \
+            sketch_lib.denominator(n_used[t], True).double()
+        a = torch.from_numpy(s_results[rid].losses[off:off + take]).to(
+            dev).double()
+        b = torch.from_numpy(r_results[rid].losses[off:off + take]).to(
+            dev).double()
+        gap = torch.where(a == b, 0.0, (a - b).abs() / (
+            2.0 ** -22 * scale + 2.0 ** -23 * a.abs()))
+        worst = max(worst, float(gap.max()))
+    if not ([(r.rid, r.status) for rep in r_reports for r in rep.results]
+            == [(r.rid, r.status) for rep in s_reports for r in rep.results]
+            and [(f.rid, f.status) for rep in r_reports for f in rep.fits]
+            == [(f.rid, f.status) for rep in s_reports for f in rep.fits]
+            and gref.private_view.summary() == sgw.private_view.summary()
+            and torch.equal(gref.bank.counts, sgw.bank.counts)
+            and worst <= 1.0):
+        raise AssertionError(f"the private gateway through the plain "
+                             f"versions differs (gap {worst})")
+    _log(f"[privacy] mode='ref': statuses, spends and counters equal; "
+         f"estimates within {worst:.4f} of the bound")
+    del gref, r_reports
+
+    # The tiered private gateway: phase 14's 64 tenants over 16 int16 slots
+    # under Zipf(1.1), stale on exhaustion.
+    def tiered_private():
+        return tiered_mod.TieredStormGateway(
+            params, TIERED_TENANTS, TIERED_HOT, query_slots=GW_QUERY_SLOTS,
+            ingest_slots=GW_INGEST_SLOTS, count_dtype=torch.int16,
+            promote_per_tick=TIERED_PROMOTE_PER_TICK,
+            privacy=privacy_lib.ReleasePolicy(
+                epsilon_total=PRIV_EPS_TOTAL,
+                epsilon_release=PRIV_EPS_RELEASE, on_exhaust="stale"),
+            privacy_seed=SEED + 17, device=dev)
+
+    tz_script = zipf_script(gw_mod, SEED + 17, TIERED_ROUNDS, TIERED_TENANTS,
+                            gw_dim)
+    gtz = tiered_private()
+    tz_reports, *_ = drive(gtz, tz_script, guard=lambda: no_host_sync(torch))
+    gtzp = tiered_private()
+    tzp_reports, *_ = drive(gtzp, tz_script, depth=2,
+                            guard=lambda: no_host_sync(torch))
+    queried = {r.tenant for reqs in tz_script for r in reqs
+               if isinstance(r, gw_mod.QueryRequest) and len(r.thetas)}
+    tz_priv = gtz.queue_stats()["privacy"]
+    if not ([report_key(r) for r in tzp_reports]
+            == [report_key(r) for r in tz_reports]
+            and gtzp.private_view.summary() == gtz.private_view.summary()
+            and set(gtz.private_view.ledger.keys()) == queried
+            and gtz.trace_count <= 5 and gtzp.trace_count <= 5
+            and gtz.promotions > 0):
+        raise AssertionError(f"the tiered private gateway: keys "
+                             f"{gtz.private_view.ledger.keys()[:8]}..., "
+                             f"trace_count {gtz.trace_count}")
+    tz_status = {}
+    for rep in tz_reports:
+        for r in rep.results:
+            tz_status[r.status] = tz_status.get(r.status, 0) + 1
+    _log(f"[privacy] tiered T={TIERED_TENANTS} H={TIERED_HOT} int16, stale: "
+         f"{gtz.ticks} ticks, {gtz.promotions} promotions; ledger keys are "
+         f"the {len(queried)} queried global tenants; statuses {tz_status}; "
+         f"{tz_priv['releases']} releases; depth 2 equals sync; trace_count "
+         f"{gtz.trace_count}")
+    del gtz, gtzp, tz_reports, tzp_reports
+
+    # Private ticks/s and host time in tick_start (fit-free, budget that
+    # lasts: every query tick is a full private tick), then the device time
+    # of a tick under the profiler.
+    pt_script = privacy_script(storm_serve, gw_mod, SEED + 16, PRIV_ROUNDS,
+                               TENANTS, gw_dim, fits=False)
+    drive(private_gateway("refuse", total=1e9)[0], pt_script[:8])  # warm-up
+    priv_times = {}
+    for label, depth in (("sync", 1), ("pipelined", 2)):
+        gtm, _ = private_gateway("refuse", total=1e9)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        reps, lat, starts = drive(gtm, pt_script, depth=depth)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        ms = sorted(1e3 * x for x in starts)
+        priv_times[label] = len(reps) / secs
+        _log(f"[time] private gateway {label}: {len(reps)} ticks in "
+             f"{secs:.4f} s: {len(reps) / secs:.1f} ticks/s, "
+             f"{gtm.points_served / secs:.0f} points/s, "
+             f"{gtm.rows_ingested / secs:.0f} rows/s; host time in "
+             f"tick_start p50 {statistics.median(ms):.4f} ms, p99 "
+             f"{statistics.quantiles(ms, n=100)[98]:.4f} ms; "
+             f"{gtm.private_view.releases} releases; staging waits "
+             f"{gtm.staging_waits}")
+    _private_profile(torch, private_gateway("refuse", total=1e9)[0],
+                     pt_script)
+    del private_runs, plog, slog, sgw, expect
+
+    # -- 17. the wire: a loopback server over a card gateway --------------------
+    from repro_torch.serve import wire
+
+    wgw = gw_mod.StormGateway(params, WIRE_TENANTS,
+                              query_slots=GW_QUERY_SLOTS,
+                              ingest_slots=GW_INGEST_SLOTS, device=dev)
+    server = wire.StormWireServer(wgw, "127.0.0.1", 0).start()
+    waddr = server.address
+    wrng = np.random.default_rng(SEED + 18)
+    try:
+        client = wire.StormWireClient(*server.address)
+        if client.budget() is not None:
+            raise AssertionError("budget without a policy is not None")
+        rows_of = [[] for _ in range(WIRE_TENANTS)]
+        rid = itertools.count()
+        checked = 0
+        for chunk in range(WIRE_CHUNKS):
+            for t in range(WIRE_TENANTS):
+                zt = (wrng.normal(size=(GW_INGEST_RATE, gw_dim)) * (
+                    0.4 / np.sqrt(gw_dim))).astype(np.float32)
+                rows_of[t].append(zt)
+                client.ingest(next(rid), t, zt)
+                header, _ = client.recv()
+                if header["type"] != "ingest_ok" or header["rows"] != len(zt):
+                    raise AssertionError(f"wire ingest: {header}")
+                th = wrng.normal(size=(WIRE_POINTS, gw_dim)).astype(
+                    np.float32)
+                got = client.query_sync(next(rid), t, th)
+                zall = torch.from_numpy(np.concatenate(rows_of[t])).to(dev)
+                lone = sketch_lib.Sketch(
+                    counts=insert_kernel.paired_hash_histogram(
+                        zall, w, torch.ones(zall.shape[0], device=dev)),
+                    n=torch.tensor(zall.shape[0], dtype=torch.int32,
+                                   device=dev))
+                want = ops.query_theta_with_weights(
+                    lone, w, torch.from_numpy(th).to(dev)).cpu().numpy()
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"wire query of tenant {t} after "
+                                         f"chunk {chunk} differs from the "
+                                         f"standalone query")
+                checked += 1
+        theta_w, losses_w = client.fit_sync(next(rid), list(range(
+            WIRE_TENANTS)), steps=GW_FIT_STEPS, seed=3)
+        subs = [insert_kernel.paired_hash_histogram(
+            torch.from_numpy(np.concatenate(z)).to(dev), w,
+            torch.ones(sum(len(c) for c in z), device=dev)) for z in rows_of]
+        offline = erm.fit_many(
+            "prp_regression", sketch_lib.SketchBank(
+                counts=torch.stack(subs),
+                n=torch.tensor([sum(len(c) for c in z) for z in rows_of],
+                               dtype=torch.int32, device=dev)),
+            params, dfo.DFOConfig(steps=GW_FIT_STEPS, num_queries=8,
+                                  sigma=0.5, learning_rate=1.0, decay=0.995),
+            generator=generator(3, dev), device=dev)
+        if not (np.array_equal(theta_w, offline.theta.cpu().numpy())
+                and np.array_equal(losses_w,
+                                   offline.fleet_losses.cpu().numpy())):
+            raise AssertionError("the wire fit differs from the offline fit")
+        wstats = client.stats()
+        client.close()
+    finally:
+        server.stop()
+    if not (wstats["rows_ingested"] == WIRE_TENANTS * WIRE_CHUNKS
+            * GW_INGEST_RATE and wstats["fits_run"] == 1
+            and wstats["trace_count"] <= 3):
+        raise AssertionError(f"wire stats: {wstats}")
+    _log(f"[wire] {waddr[0]}:{waddr[1]}: {checked} "
+         f"queries after {WIRE_TENANTS} x {WIRE_CHUNKS} ingests of "
+         f"{GW_INGEST_RATE} rows equal standalone queries of the lone "
+         f"sketches; the cohort fit equals the offline fit_many; stats: "
+         f"{wstats['ticks']} ticks, {wstats['rows_ingested']} rows, "
+         f"trace_count {wstats['trace_count']}")
+    # A private server: budget frames drain as the ledger does; a spent
+    # tenant's query is a terminal budget_exceeded; a stale server flags.
+    for on_exhaust in ("refuse", "stale"):
+        pgw = gw_mod.StormGateway(
+            params, WIRE_TENANTS, query_slots=GW_QUERY_SLOTS,
+            ingest_slots=GW_INGEST_SLOTS, privacy=privacy_lib.ReleasePolicy(
+                epsilon_total=2.0, epsilon_release=1.0,
+                on_exhaust=on_exhaust), privacy_seed=SEED + 19, device=dev)
+        server = wire.StormWireServer(pgw, "127.0.0.1", 0).start()
+        try:
+            client = wire.StormWireClient(*server.address)
+            spent, first = [], None
+            for chunk in range(3):
+                client.ingest(next(rid), 1, (wrng.normal(
+                    size=(GW_INGEST_RATE, gw_dim)) * (0.4 / np.sqrt(gw_dim))
+                ).astype(np.float32))
+                if client.recv()[0]["type"] != "ingest_ok":
+                    raise AssertionError("private wire ingest")
+                th = wrng.normal(size=(WIRE_POINTS, gw_dim)).astype(
+                    np.float32)
+                if chunk < 2:
+                    out = client.query_sync(next(rid), 1, th)
+                    first = out if first is None else first
+                    spent.append(client.budget()["spent"]["1"])
+                elif on_exhaust == "refuse":
+                    try:
+                        client.query_sync(next(rid), 1, th)
+                    except wire.BudgetExceeded as exc:
+                        if exc.header["retryable"] is not False:
+                            raise AssertionError("budget_exceeded retryable")
+                    else:
+                        raise AssertionError("a spent tenant was served")
+                else:
+                    client.query(next(rid), 1, th)
+                    header, out = client.recv()
+                    if not (header["type"] == "result"
+                            and header.get("stale") is True):
+                        raise AssertionError(f"stale wire result: {header}")
+            budget = client.budget()
+            client.close()
+        finally:
+            server.stop()
+        if not (spent == [1.0, 2.0] and budget["exhausted"] == [1]
+                and budget["remaining"] == {"1": 0.0}):
+            raise AssertionError(f"wire budget: {spent}, {budget}")
+        _log(f"[wire] private ({on_exhaust}): budget frames {spent} then "
+             f"{budget['spent']}, exhausted {budget['exhausted']}; the third "
+             f"read " + ("raised BudgetExceeded (terminal)"
+                         if on_exhaust == "refuse" else "came back stale"))
+    del wgw, pgw
+
     # -- 11. timings ------------------------------------------------------------
     # "ms" is device time per launch from torch.profiler (CUPTI); where the
     # profiler records no device activity it is the CUDA-event time per call,
@@ -1609,6 +2316,22 @@ def main() -> int:
             _bound(bytes_moved=4 * (qb.numel() + w.numel() + 2 * mq
                                     + min(mq * rows, bcounts.numel())),
                    flops=2.0 * mq * d_aug * rows * p)),
+        "sketch_query_f32": (
+            lambda: query_kernel.sketch_query(q_fit, w, f32_lanes[0]),
+            lambda: ref.sketch_query(q_fit, w, f32_lanes[0]), 200, 20,
+            "sketch_query_kernel",
+            # 4-byte table reads, as for int32 tables.
+            _bound(bytes_moved=4 * (q_fit.numel() + w.numel() + m
+                                    + min(m * rows, f32_lanes[0].numel())),
+                   flops=2.0 * m * d_aug * rows * p)),
+        "sketch_query_banked_f32": (
+            lambda: query_kernel.sketch_query_banked(q_gw, w, f32_lanes,
+                                                     idx_gw, True),
+            lambda: ref.sketch_query_banked(q_gw, w, f32_lanes, idx_gw),
+            200, 20, "sketch_query_kernel",
+            _bound(bytes_moved=4 * (q_gw.numel() + w.numel() + 2 * m_gw
+                                    + min(m_gw * rows, f32_lanes.numel())),
+                   flops=2.0 * m_gw * d_aug * rows * p)),
         "srp_hash": (
             lambda: hash_kernel.srp_hash(xh, w),
             lambda: ref.srp_hash(xh, w), 20, 1, "srp_hash_reg_kernel",
@@ -1690,11 +2413,16 @@ def main() -> int:
             ("sketch_query_banked",
              lambda q_t=q_t, idx_t=idx_t: query_kernel.sketch_query_banked(
                  q_t, w, bcounts, idx_t), bcounts),
+            ("sketch_query_f32", lambda q_t=q_t: query_kernel.sketch_query(
+                q_t, w, f32_lanes[0]), f32_lanes[0]),
+            ("sketch_query_banked_f32",
+             lambda q_t=q_t, idx_t=idx_t: query_kernel.sketch_query_banked(
+                 q_t, w, f32_lanes, idx_t), f32_lanes),
         ):
             q_ms = _device_ms(fn, 200, torch, "sketch_query_kernel")
             q_bound, q_by = _bound(
                 bytes_moved=4 * (q_t.numel() + w.numel() + m_t
-                                 + (m_t if table is bcounts else 0)
+                                 + (m_t if table.ndim == 3 else 0)
                                  + min(m_t * rows, table.numel())),
                 flops=2.0 * m_t * d_aug * rows * p)
             _log(f"[time] {name} at m={m_t}: device {q_ms} ms per launch; "
@@ -1799,6 +2527,10 @@ def main() -> int:
          "src/repro/kernels/sketch_query.py:175"),
         ("srp_hash", csrc + "srp_hash.cu",
          "src/repro/kernels/srp_hash.py:53"),
+        ("sketch_query_f32", csrc + "sketch_query.cu",
+         "src/repro/kernels/sketch_query.py:80"),
+        ("sketch_query_banked_f32", csrc + "sketch_query.cu",
+         "src/repro/kernels/sketch_query.py:175"),
     ):
         ms, plain_ms, (bound_ms, bound_by) = times[name]
         kernels.append({

@@ -145,13 +145,18 @@ def merge(a: Sketch, b: Sketch) -> Sketch:
 
 
 def mean_count(gathered: Tensor) -> Tensor:
-    """Mean of gathered integer counts over the last axis, as fp32.
+    """Mean of gathered counts over the last axis, as fp32.
 
-    The sum is taken in int64 and converted once, so it is exact whatever the
-    stream size. It is then scaled by the fp32 reciprocal of R, as XLA lowers
-    the reference's ``jnp.mean``: below 2^24 the two agree bit for bit.
+    Integer counts are summed in int64 and converted once, so the sum is
+    exact whatever the stream size. Float counts (a privatized release,
+    ``core.privacy``) are summed in float64 and converted once: on
+    integer-valued tables that equals the integer path bit for bit, and
+    fractional parts (the release's noise) are kept. The sum is then scaled
+    by the fp32 reciprocal of R, as XLA lowers the reference's
+    ``jnp.mean``: for integer sums below 2^24 the two agree bit for bit.
     """
-    total = gathered.to(torch.int64).sum(-1).to(torch.float32)
+    wide = torch.float64 if gathered.dtype.is_floating_point else torch.int64
+    total = gathered.to(wide).sum(-1).to(torch.float32)
     inv_rows = np.float32(1.0) / np.float32(gathered.shape[-1])
     # A Python scalar operand: exact in fp32, and no host->device copy.
     return total * float(inv_rows)

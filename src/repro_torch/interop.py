@@ -4,8 +4,11 @@
 runs draw the hash family, the DFO sphere directions and the refine samples
 once, hand them over as numpy arrays, and the port replays them. Serving
 state crosses the same way: a gateway's warm-start bank (:func:`sketch_bank`)
-and a tiered store's slot map and cold tables (:func:`tiered_bank`). This
-module takes and returns numpy only; it never imports JAX.
+and a tiered store's slot map and cold tables (:func:`tiered_bank`), and so
+do privacy releases: a released sketch (:func:`private_sketch`), mechanism
+noise drawn by ``jax.random`` (:func:`noise`) and a view's read plans
+(:func:`read_plan`). This module takes and returns numpy only; it never
+imports JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsh import LSHParams
+from repro_torch.core.privacy import PrivateSketch, ReadPlan
 from repro_torch.core.sketch import Sketch, SketchBank, counter_dtype
 from repro_torch.core.tiered import TieredBank
 from repro_torch.device import DeviceLike, resolve_device
@@ -106,6 +110,29 @@ def tiered_to_numpy(tb: TieredBank) -> dict:
         last_touch=list(tb._last_touch), touches=list(tb._touches),
         swap_count=tb.swap_count,
     )
+
+
+def private_sketch(counts, n, device: DeviceLike = None) -> PrivateSketch:
+    """``(R, B)`` released f32 counts and the insert count ->
+    :class:`PrivateSketch`."""
+    c = _float_tensor(counts, 2, "released counts", device)
+    return PrivateSketch(counts=c, n=torch.tensor(int(n), dtype=torch.int32,
+                                                  device=c.device))
+
+
+def noise(arr, device: DeviceLike = None) -> torch.Tensor:
+    """A mechanism's f32 draws of any shape (count noise, projection
+    normals) -> a tensor, for the ``noise=`` / ``e_s=`` / ``e_t=`` arguments
+    of ``core.privacy``."""
+    a = np.array(arr, dtype=np.float32)  # a writable copy
+    return torch.from_numpy(a).to(resolve_device(device))
+
+
+def read_plan(plan) -> ReadPlan:
+    """A read plan (any object with ``status``, ``noise``, ``n``, ``spent``,
+    e.g. the reference view's) -> :class:`ReadPlan`, its noise copied."""
+    arr = None if plan.noise is None else np.array(plan.noise, np.float32)
+    return ReadPlan(str(plan.status), arr, int(plan.n), bool(plan.spent))
 
 
 def directions(v, device: DeviceLike = None) -> torch.Tensor:

@@ -47,10 +47,22 @@
 //     the counts are an (S, R, 2^p) stack under one hash family and point i
 //     gathers from table sketch_idx[i]. The lone one is compiled without the
 //     index (BANKED = false).
+//   * f32 tables (a privatized release: integer counts plus noise; the
+//     reference's bodies read them too, casting the tile to f32) take the
+//     same projection and gather with another accumulator (FLOAT = true).
+//     Float atomics would make the sum depend on the order in which blocks
+//     finish, so each thread sums its slice in float64, in row order, and
+//     writes one partial per (slice, point) to a float64 workspace; the last
+//     block of the tile sums the partials in slice order, converts once to
+//     f32 and scales by fp32(1/R). Two launches on the same inputs give the
+//     same bits; on integer-valued tables the float64 sums are exact, so the
+//     result equals the integer body's bit for bit. Every partial is written
+//     before it is read, so this workspace needs no zeroing either.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -64,24 +76,36 @@ constexpr int kMaxFeatures = 32;     // ... and in d
 // slice made the launch fail). Large m reaches the cap: few blocks along R.
 constexpr int kWeightBytes = 32 * 1024;
 
-// counts[k] of a table of count_bytes-wide integers, widened.
-__device__ __forceinline__ long long count_at(const void* __restrict__ c,
-                                              size_t k, int count_bytes) {
-  if (count_bytes == 4) return static_cast<const int32_t*>(c)[k];
-  if (count_bytes == 2) return static_cast<const int16_t*>(c)[k];
-  return static_cast<const int8_t*>(c)[k];
+// Adds counts[k] to a slice sum: integers of count_bytes widened to int64,
+// or an f32 widened to float64.
+__device__ __forceinline__ void add_count(long long& sum,
+                                          const void* __restrict__ c,
+                                          size_t k, int count_bytes) {
+  if (count_bytes == 4) sum += static_cast<const int32_t*>(c)[k];
+  else if (count_bytes == 2) sum += static_cast<const int16_t*>(c)[k];
+  else sum += static_cast<const int8_t*>(c)[k];
+}
+
+__device__ __forceinline__ void add_count(double& sum,
+                                          const void* __restrict__ c,
+                                          size_t k, int) {
+  sum += (double)static_cast<const float*>(c)[k];
 }
 
 // P > 0: the staged body (P planes, d <= DMAX); P = 0: the generic body.
-template <int P, int DMAX, bool BANKED>
+// FLOAT: f32 tables, reduced through `partials` (gridDim.x x m float64);
+// else integer tables, reduced through `sums` (m int64).
+template <int P, int DMAX, bool BANKED, bool FLOAT>
 __global__ void __launch_bounds__(kMaxTile)
 sketch_query_kernel(const float* __restrict__ q, const float* __restrict__ w,
                     const void* __restrict__ counts, int count_bytes,
                     const int32_t* __restrict__ sketch_idx,
                     float* __restrict__ out,
                     unsigned long long* __restrict__ sums,
+                    double* __restrict__ partials,
                     unsigned* __restrict__ tickets, int m, int d, int p,
                     int rows, int slice) {
+  using Sum = std::conditional_t<FLOAT, double, long long>;
   extern __shared__ __align__(16) float wsm[];  // (slice, P, DMAX)
   __shared__ bool last;
   const int tid = threadIdx.x, tile = blockDim.x;
@@ -105,7 +129,7 @@ sketch_query_kernel(const float* __restrict__ q, const float* __restrict__ w,
       const size_t table =
           BANKED ? (size_t)sketch_idx[i] * rows * buckets : 0;
       const size_t cell0 = table + (size_t)r0 * buckets;
-      long long sum = 0;
+      Sum sum = 0;
       if constexpr (P > 0) {
         float qv[DMAX];
 #pragma unroll
@@ -129,8 +153,8 @@ sketch_query_kernel(const float* __restrict__ q, const float* __restrict__ w,
             }
             code |= (acc > 0.f) << j;
           }
-          sum += count_at(counts, cell0 + (size_t)rr * buckets + code,
-                          count_bytes);
+          add_count(sum, counts, cell0 + (size_t)rr * buckets + code,
+                    count_bytes);
         }
       } else {
         const float* qi = q + (size_t)i * d;
@@ -144,11 +168,14 @@ sketch_query_kernel(const float* __restrict__ q, const float* __restrict__ w,
               acc = __fadd_rn(acc, __fmul_rn(qi[f], wj[(size_t)f * rows]));
             code |= (acc > 0.f) << j;
           }
-          sum += count_at(counts, cell0 + (size_t)rr * buckets + code,
-                          count_bytes);
+          add_count(sum, counts, cell0 + (size_t)rr * buckets + code,
+                    count_bytes);
         }
       }
-      if (sum != 0) atomicAdd(sums + i, (unsigned long long)sum);
+      if constexpr (FLOAT)
+        partials[(size_t)blockIdx.x * m + i] = sum;
+      else if (sum != 0)
+        atomicAdd(sums + i, (unsigned long long)sum);
     }
     __threadfence();  // this block's sums are visible before its ticket
     __syncthreads();
@@ -156,71 +183,108 @@ sketch_query_kernel(const float* __restrict__ q, const float* __restrict__ w,
     __syncthreads();
     if (last) {  // every slice of tile t has added its sums
       if (i < m) {
-        const long long total = (long long)atomicExch(sums + i, 0ull);
-        out[i] = __fmul_rn(__ll2float_rn(total), __frcp_rn((float)rows));
+        if constexpr (FLOAT) {
+          double total = 0.0;  // in slice order: the same bits every launch
+          for (int x = 0; x < (int)gridDim.x; ++x)
+            total += __ldcg(partials + (size_t)x * m + i);
+          out[i] = __fmul_rn(__double2float_rn(total),
+                             __frcp_rn((float)rows));
+        } else {
+          const long long total = (long long)atomicExch(sums + i, 0ull);
+          out[i] = __fmul_rn(__ll2float_rn(total), __frcp_rn((float)rows));
+        }
       }
       if (tid == 0) tickets[t] = 0u;
     }
   }
 }
 
-template <int P, int DMAX, bool BANKED>
+// The grid of one launch: x = slices of `slice` rows, y = point tiles.
+struct Plan {
+  int tile, gx, gy, slice;
+};
+
+Plan make_plan(int m, int d, int p, int rows, int sms) {
+  Plan g;
+  g.tile = m >= kMaxTile ? kMaxTile : (m + 31) / 32 * 32;
+  const int ntiles = (m + g.tile - 1) / g.tile;
+  g.gy = std::min(ntiles, 65535);
+  const int want_gx = std::max(1, sms * kBlocksPerSm / g.gy);
+  g.slice = std::max((rows + want_gx - 1) / want_gx, std::min(kMinRows, rows));
+  if (d <= kMaxFeatures && p <= kMaxPlanes) {  // the staged body's weights
+    const int dmax = d <= 12 ? 12 : d <= 16 ? 16 : 32;
+    g.slice = std::min(g.slice, kWeightBytes / (int)(sizeof(float) * p * dmax));
+  }
+  g.gx = (rows + g.slice - 1) / g.slice;
+  return g;
+}
+
+cudaError_t sm_count(int* sms) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+template <int P, int DMAX, bool BANKED, bool FLOAT>
 cudaError_t launch(const float* q, const float* w, const void* counts,
                    int count_bytes, const int32_t* sketch_idx, float* out,
-                   unsigned long long* sums, unsigned* tickets, int m, int d,
-                   int p, int rows, cudaStream_t s) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
+                   unsigned long long* sums, double* partials,
+                   unsigned* tickets, int m, int d, int p, int rows,
+                   cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int tile = m >= kMaxTile ? kMaxTile : (m + 31) / 32 * 32;
-  const int ntiles = (m + tile - 1) / tile;
-  const int gy = std::min(ntiles, 65535);
-  const int want_gx = std::max(1, sms * kBlocksPerSm / gy);
-  int slice = std::max((rows + want_gx - 1) / want_gx,
-                       std::min(kMinRows, rows));
-  if constexpr (P > 0)
-    slice = std::min(slice, kWeightBytes / (int)(sizeof(float) * P * DMAX));
-  const int gx = (rows + slice - 1) / slice;
-  const size_t smem = P > 0 ? sizeof(float) * slice * P * DMAX : 0;
-  sketch_query_kernel<P, DMAX, BANKED><<<dim3(gx, gy), tile, smem, s>>>(
-      q, w, counts, count_bytes, sketch_idx, out, sums, tickets, m, d, p,
-      rows, slice);
+  const Plan g = make_plan(m, d, p, rows, sms);
+  const size_t smem = P > 0 ? sizeof(float) * g.slice * P * DMAX : 0;
+  sketch_query_kernel<P, DMAX, BANKED, FLOAT>
+      <<<dim3(g.gx, g.gy), g.tile, smem, s>>>(
+          q, w, counts, count_bytes, sketch_idx, out, sums, partials, tickets,
+          m, d, p, rows, g.slice);
   return cudaGetLastError();
 }
 
-template <int P, bool BANKED>
+template <int P, bool BANKED, bool FLOAT>
 cudaError_t dispatch_d(const float* q, const float* w, const void* counts,
                        int count_bytes, const int32_t* sketch_idx, float* out,
-                       unsigned long long* sums, unsigned* tickets, int m,
-                       int d, int p, int rows, cudaStream_t s) {
+                       unsigned long long* sums, double* partials,
+                       unsigned* tickets, int m, int d, int p, int rows,
+                       cudaStream_t s) {
   if (d <= 12)
-    return launch<P, 12, BANKED>(q, w, counts, count_bytes, sketch_idx, out,
-                                 sums, tickets, m, d, p, rows, s);
+    return launch<P, 12, BANKED, FLOAT>(q, w, counts, count_bytes,
+                                        sketch_idx, out, sums, partials,
+                                        tickets, m, d, p, rows, s);
   if (d <= 16)
-    return launch<P, 16, BANKED>(q, w, counts, count_bytes, sketch_idx, out,
-                                 sums, tickets, m, d, p, rows, s);
-  return launch<P, 32, BANKED>(q, w, counts, count_bytes, sketch_idx, out,
-                               sums, tickets, m, d, p, rows, s);
+    return launch<P, 16, BANKED, FLOAT>(q, w, counts, count_bytes,
+                                        sketch_idx, out, sums, partials,
+                                        tickets, m, d, p, rows, s);
+  return launch<P, 32, BANKED, FLOAT>(q, w, counts, count_bytes, sketch_idx,
+                                      out, sums, partials, tickets, m, d, p,
+                                      rows, s);
 }
 
-template <bool BANKED>
+// count_bytes: 4, 2 or 1 for int32, int16 or int8 tables; 4 for f32 ones
+// (FLOAT).
+template <bool BANKED, bool FLOAT>
 cudaError_t query(const float* q, const float* w, const void* counts,
                   const int32_t* sketch_idx, float* out,
-                  unsigned long long* sums, unsigned* tickets, int m, int d,
-                  int p, int rows, int count_bytes, cudaStream_t s) {
+                  unsigned long long* sums, double* partials,
+                  unsigned* tickets, int m, int d, int p, int rows,
+                  int count_bytes, cudaStream_t s) {
   if (m == 0) return cudaSuccess;
   if (p < 1 || p > 30 || rows < 1 ||
-      (count_bytes != 4 && count_bytes != 2 && count_bytes != 1))
+      (count_bytes != 4 && count_bytes != 2 && count_bytes != 1) ||
+      (FLOAT && count_bytes != 4))
     return cudaErrorInvalidValue;
   if (d > kMaxFeatures || p > kMaxPlanes)
-    return launch<0, 4, BANKED>(q, w, counts, count_bytes, sketch_idx, out,
-                                sums, tickets, m, d, p, rows, s);
+    return launch<0, 4, BANKED, FLOAT>(q, w, counts, count_bytes, sketch_idx,
+                                       out, sums, partials, tickets, m, d, p,
+                                       rows, s);
 #define STORM_QUERY_P(P)                                                      \
   case P:                                                                     \
-    return dispatch_d<P, BANKED>(q, w, counts, count_bytes, sketch_idx, out,  \
-                                 sums, tickets, m, d, p, rows, s);
+    return dispatch_d<P, BANKED, FLOAT>(q, w, counts, count_bytes,            \
+                                        sketch_idx, out, sums, partials,      \
+                                        tickets, m, d, p, rows, s);
   switch (p) {
     STORM_QUERY_P(1)
     STORM_QUERY_P(2)
@@ -246,10 +310,10 @@ extern "C" {
 int storm_sketch_query(const void* q, const void* w, const void* counts,
                        void* out, void* sums, void* tickets, int m, int d,
                        int p, int rows, int count_bytes, void* stream) {
-  return (int)query<false>((const float*)q, (const float*)w, counts, nullptr,
-                           (float*)out, (unsigned long long*)sums,
-                           (unsigned*)tickets, m, d, p, rows, count_bytes,
-                           (cudaStream_t)stream);
+  return (int)query<false, false>(
+      (const float*)q, (const float*)w, counts, nullptr, (float*)out,
+      (unsigned long long*)sums, nullptr, (unsigned*)tickets, m, d, p, rows,
+      count_bytes, (cudaStream_t)stream);
 }
 
 // The banked query: counts (S, R, 2^p), sketch_idx (m,) int32 in [0, S),
@@ -258,10 +322,43 @@ int storm_sketch_query_banked(const void* q, const void* w, const void* counts,
                               const void* sketch_idx, void* out, void* sums,
                               void* tickets, int m, int d, int p, int rows,
                               int count_bytes, void* stream) {
-  return (int)query<true>((const float*)q, (const float*)w, counts,
-                          (const int32_t*)sketch_idx, (float*)out,
-                          (unsigned long long*)sums, (unsigned*)tickets, m, d,
-                          p, rows, count_bytes, (cudaStream_t)stream);
+  return (int)query<true, false>(
+      (const float*)q, (const float*)w, counts, (const int32_t*)sketch_idx,
+      (float*)out, (unsigned long long*)sums, nullptr, (unsigned*)tickets, m,
+      d, p, rows, count_bytes, (cudaStream_t)stream);
+}
+
+// The float64 partials a query of f32 tables writes: one per (row slice,
+// point); -1 on a CUDA error.
+long long storm_sketch_query_partials(int m, int d, int p, int rows) {
+  int sms = 0;
+  if (m <= 0) return 0;
+  if (sm_count(&sms) != cudaSuccess) return -1;
+  return (long long)make_plan(m, d, p, rows, sms).gx * m;
+}
+
+// The queries of f32 tables, counts (R, 2^p), or (S, R, 2^p) with
+// sketch_idx: partials (storm_sketch_query_partials of them) and tickets (at
+// least m int32, all zero before and after, shared with the integer queries
+// of the stream).
+int storm_sketch_query_f32(const void* q, const void* w, const void* counts,
+                           void* out, void* partials, void* tickets, int m,
+                           int d, int p, int rows, void* stream) {
+  return (int)query<false, true>(
+      (const float*)q, (const float*)w, counts, nullptr, (float*)out, nullptr,
+      (double*)partials, (unsigned*)tickets, m, d, p, rows, 4,
+      (cudaStream_t)stream);
+}
+
+int storm_sketch_query_banked_f32(const void* q, const void* w,
+                                  const void* counts, const void* sketch_idx,
+                                  void* out, void* partials, void* tickets,
+                                  int m, int d, int p, int rows,
+                                  void* stream) {
+  return (int)query<true, true>(
+      (const float*)q, (const float*)w, counts, (const int32_t*)sketch_idx,
+      (float*)out, nullptr, (double*)partials, (unsigned*)tickets, m, d, p,
+      rows, 4, (cudaStream_t)stream);
 }
 
 const char* storm_cuda_error_string(int code) {

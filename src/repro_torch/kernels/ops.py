@@ -147,7 +147,8 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor, mode: str = "auto",
     point ``i`` reads table ``sketch_idx[i]``; ``index_checked``, where the
     caller has checked the index range on the host, spares the kernel
     wrapper its read of it (``sketch_query.sketch_query_banked``). uint16
-    counters (which the kernel does not read) are widened to int32 first.
+    counters (which the kernel does not read) are widened to int32 first;
+    float32 tables (a privatized release) take the kernel's f32 variant.
     """
     if (sketch_idx is not None) != (counts.ndim == 3) or counts.ndim not in (
             2, 3):

@@ -160,7 +160,8 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
     Args:
       q: ``(m, d)`` query vectors (already normalized and augmented).
       w: ``(p, d, R)`` hyperplane normals.
-      counts: ``(R, 2**p)`` counters (int32, int16 or int8).
+      counts: ``(R, 2**p)`` counters (int32, int16 or int8), or a float32
+        table (summed in float64: ``core.sketch.mean_count``).
     """
     codes = srp_hash(q, w)
     rows = torch.arange(counts.shape[0], device=q.device)
@@ -174,7 +175,8 @@ def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
     Args:
       q: ``(m, d)`` query vectors (already normalized and augmented).
       w: ``(p, d, R)`` hyperplane normals, shared by the bank.
-      counts: ``(S, R, 2**p)`` counters (int32, int16 or int8).
+      counts: ``(S, R, 2**p)`` counters (int32, int16 or int8), or
+        float32 tables.
       sketch_idx: ``(m,)`` integer table index of each point.
     """
     codes = srp_hash(q, w)

@@ -11,6 +11,13 @@ partial sums into a per-point workspace; the last block of a point tile
 writes the means and sets its part of the workspace back to zero. The
 workspace (:func:`_workspace`) is kept per device and stream and grown on
 demand, so a call makes one launch and no other CUDA operation.
+
+Tables of f32 (a privatized release, ``core.privacy``) go to the kernel's
+f32 variant, :func:`sketch_query_f32` and :func:`sketch_query_banked_f32`
+(``sketch_query`` and ``sketch_query_banked`` hand them on, and each counts
+its own launches). It sums in float64 with a fixed order: each block
+writes one partial per (row slice, point) into a float64 workspace
+(:func:`_partials`), and the last block of a point tile adds them up.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ MAX_PLANES = 30
 
 # (device index, stream handle) -> (int64 point sums, int32 tile tickets)
 _WORKSPACES: Dict[Tuple[int, int], Tuple[Tensor, Tensor]] = {}
+# (device index, stream handle) -> float64 partials of the f32 variant
+_PARTIALS: Dict[Tuple[int, int], Tensor] = {}
 
 
 @functools.cache
@@ -41,6 +50,15 @@ def _lib() -> ctypes.CDLL:
     banked.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
     lone.restype = banked.restype = ctypes.c_int
+    lone32 = lib.storm_sketch_query_f32
+    lone32.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+    banked32 = lib.storm_sketch_query_banked_f32
+    banked32.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+    lone32.restype = banked32.restype = ctypes.c_int
+    lib.storm_sketch_query_partials.argtypes = [ctypes.c_int] * 4
+    lib.storm_sketch_query_partials.restype = ctypes.c_longlong
     return lib
 
 
@@ -62,6 +80,32 @@ def _workspace(device: torch.device, stream: int, m: int
     return ws
 
 
+@functools.lru_cache(maxsize=256)
+def _partials_needed(device_index: int, m: int, d: int, p: int,
+                     rows: int) -> int:
+    """float64 partials of one f32 query: one per (row slice, point), as
+    the kernel plans its grid on the device (the SM count sets it)."""
+    need = _lib().storm_sketch_query_partials(m, d, p, rows)
+    if need < 0:
+        raise RuntimeError("sketch_query_f32: could not read the device's "
+                           "SM count")
+    return need
+
+
+def _partials(device: torch.device, stream: int, need: int) -> Tensor:
+    """The f32 variant's float64 workspace on ``(device, stream)``, at least
+    ``need`` long. Every entry a launch reads it wrote first, so it is
+    never zeroed; grown (once, without a host read) when a call needs
+    more."""
+    key = (device.index, stream)
+    ws = _PARTIALS.get(key)
+    if ws is None or ws.numel() < need:
+        cap = max(need, 1 << 16, 2 * ws.numel() if ws is not None else 0)
+        ws = torch.empty(cap, dtype=torch.float64, device=device)
+        _PARTIALS[key] = ws
+    return ws
+
+
 def _check_cuda(q: Tensor, w: Tensor, counts: Tensor) -> None:
     if not (q.device == w.device == counts.device):
         raise ValueError(f"q, w and counts must share one device; got "
@@ -70,9 +114,10 @@ def _check_cuda(q: Tensor, w: Tensor, counts: Tensor) -> None:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32; got "
                              f"{t.dtype}, contiguous={t.is_contiguous()}")
-    if counts.dtype not in _COUNT_BYTES or not counts.is_contiguous():
-        raise ValueError(f"counts must be contiguous int32, int16 or int8; "
-                         f"got {counts.dtype}")
+    if (counts.dtype not in _COUNT_BYTES and counts.dtype != torch.float32
+            or not counts.is_contiguous()):
+        raise ValueError(f"counts must be contiguous int32, int16, int8 or "
+                         f"float32; got {counts.dtype}")
     if q.ndim != 2 or w.ndim != 3 or q.shape[1] != w.shape[1]:
         raise ValueError(f"need q (m, d), w (p, d, R); got {tuple(q.shape)}, "
                          f"{tuple(w.shape)}")
@@ -96,8 +141,11 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
     Args:
       q: ``(m, d)`` query vectors (already normalized and augmented).
       w: ``(p, d, R)`` hyperplane normals.
-      counts: ``(R, 2**p)`` int32, int16 or int8 counters.
+      counts: ``(R, 2**p)`` int32, int16 or int8 counters, or a float32
+        table (handed to :func:`sketch_query_f32`).
     """
+    if counts.dtype == torch.float32:
+        return sketch_query_f32(q, w, counts)
     if not _on_cuda(q):
         return ref.sketch_query(q, w, counts)
     _check_cuda(q, w, counts)
@@ -129,7 +177,8 @@ def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
     Args:
       q: ``(m, d)`` query vectors (already normalized and augmented).
       w: ``(p, d, R)`` hyperplane normals, shared by the bank.
-      counts: ``(S, R, 2**p)`` int32, int16 or int8 counters.
+      counts: ``(S, R, 2**p)`` int32, int16 or int8 counters, or float32
+        tables (handed to :func:`sketch_query_banked_f32`).
       sketch_idx: ``(m,)`` integer table index per point, each in ``[0, S)``.
       index_checked: the caller has made sure, on the host, that every
         entry of ``sketch_idx`` lies in ``[0, S)``. Then nothing is read
@@ -138,19 +187,10 @@ def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
         ``False`` checks the entries here, at one read back to the host
         per call.
     """
-    if counts.ndim != 3 or sketch_idx.shape != (q.shape[0],):
-        raise ValueError(f"need counts (S, R, B) and sketch_idx (m,); got "
-                         f"{tuple(counts.shape)}, {tuple(sketch_idx.shape)}")
-    if sketch_idx.dtype.is_floating_point or sketch_idx.device != q.device:
-        raise ValueError(f"sketch_idx must be an integer tensor on "
-                         f"{q.device}; got {sketch_idx.dtype} on "
-                         f"{sketch_idx.device}")
-    idx = sketch_idx.to(torch.int32).contiguous()
-    if not index_checked and idx.numel():
-        lo, hi = torch.stack(torch.aminmax(idx)).tolist()
-        if lo < 0 or hi >= counts.shape[0]:
-            raise ValueError(f"sketch_idx must lie in [0, {counts.shape[0]});"
-                             f" got {lo}..{hi}")
+    if counts.dtype == torch.float32:
+        return sketch_query_banked_f32(q, w, counts, sketch_idx,
+                                       index_checked)
+    idx = _bank_index(q, counts, sketch_idx, index_checked)
     if not _on_cuda(q):
         return ref.sketch_query_banked(q, w, counts, idx)
     _check_cuda(q, w, counts)
@@ -172,5 +212,85 @@ def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
     return out
 
 
+def _bank_index(q: Tensor, counts: Tensor, sketch_idx: Tensor,
+                index_checked: bool) -> Tensor:
+    """``sketch_idx`` as contiguous int32, its range checked unless the
+    caller has (``index_checked``)."""
+    if counts.ndim != 3 or sketch_idx.shape != (q.shape[0],):
+        raise ValueError(f"need counts (S, R, B) and sketch_idx (m,); got "
+                         f"{tuple(counts.shape)}, {tuple(sketch_idx.shape)}")
+    if sketch_idx.dtype.is_floating_point or sketch_idx.device != q.device:
+        raise ValueError(f"sketch_idx must be an integer tensor on "
+                         f"{q.device}; got {sketch_idx.dtype} on "
+                         f"{sketch_idx.device}")
+    idx = sketch_idx.to(torch.int32).contiguous()
+    if not index_checked and idx.numel():
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+        if lo < 0 or hi >= counts.shape[0]:
+            raise ValueError(f"sketch_idx must lie in [0, {counts.shape[0]});"
+                             f" got {lo}..{hi}")
+    return idx
+
+
+def _launch_f32(q: Tensor, w: Tensor, counts: Tensor, idx) -> Tensor:
+    """One launch of the f32 variant (``idx`` None: the lone query)."""
+    _check_cuda(q, w, counts)
+    if counts.dtype != torch.float32:
+        raise ValueError(f"counts must be float32; got {counts.dtype}")
+    p, d, rows = w.shape
+    m = q.shape[0]
+    out = torch.empty((m,), dtype=torch.float32, device=q.device)
+    if not m:
+        return out  # nothing to query: no launch
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _, tickets = _workspace(q.device, stream, m)
+    partials = _partials(q.device, stream, _partials_needed(
+        q.device.index, m, d, p, rows))
+    if idx is None:
+        code = lib.storm_sketch_query_f32(
+            q.data_ptr(), w.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), tickets.data_ptr(), m, d, p, rows, stream)
+    else:
+        code = lib.storm_sketch_query_banked_f32(
+            q.data_ptr(), w.data_ptr(), counts.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), partials.data_ptr(), tickets.data_ptr(), m, d, p,
+            rows, stream)
+    _build.check(code, lib, "sketch_query_f32" if idx is None
+                 else "sketch_query_banked_f32")
+    return out
+
+
+def sketch_query_f32(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
+    """:func:`sketch_query` over a float32 table ``(R, 2**p)``: the mean of
+    the gathered values, summed in float64, converted once, scaled by
+    fp32(1/R). Two launches give the same bits; an integer-valued table
+    gives the integer query's result bit for bit."""
+    if not _on_cuda(q):
+        return ref.sketch_query(q, w, counts)
+    if counts.ndim != 2:
+        raise ValueError(f"counts must be (R, B); got {tuple(counts.shape)}")
+    out = _launch_f32(q, w, counts, None)
+    if q.shape[0]:
+        sketch_query_f32.launches += 1
+    return out
+
+
+def sketch_query_banked_f32(q: Tensor, w: Tensor, counts: Tensor,
+                            sketch_idx: Tensor,
+                            index_checked: bool = False) -> Tensor:
+    """:func:`sketch_query_banked` over float32 tables ``(S, R, 2**p)``,
+    summed as :func:`sketch_query_f32` sums."""
+    idx = _bank_index(q, counts, sketch_idx, index_checked)
+    if not _on_cuda(q):
+        return ref.sketch_query_banked(q, w, counts, idx)
+    out = _launch_f32(q, w, counts, idx)
+    if q.shape[0]:
+        sketch_query_banked_f32.launches += 1
+    return out
+
+
 sketch_query.launches = 0
 sketch_query_banked.launches = 0
+sketch_query_f32.launches = 0
+sketch_query_banked_f32.launches = 0

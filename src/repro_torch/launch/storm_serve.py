@@ -1,22 +1,32 @@
-"""STORM sketch-serving launcher: the micro-batched gateway driven by
-synthetic traffic (port of ``repro.launch.storm_serve``'s synthetic drive).
+"""STORM sketch-serving launcher: the micro-batched gateway over a bank
+(port of ``repro.launch.storm_serve``). Two modes:
 
-Generates mixed per-tenant read/write traffic and pumps it through the
-fixed-tick gateway in-process, synchronously or with two ticks in flight
-(``--pipelined``: pack tick t+1 on the host while tick t runs on the card):
+* **synthetic drive** (default): mixed per-tenant read/write traffic pumped
+  through the fixed-tick gateway in-process, synchronously or with two
+  ticks in flight (``--pipelined``: pack tick t+1 on the host while tick t
+  runs on the card):
 
-    PYTHONPATH=src python -m repro_torch.launch.storm_serve --tenants 8 --ticks 32
-    PYTHONPATH=src python -m repro_torch.launch.storm_serve --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.storm_serve --tenants 8 --ticks 32
+      PYTHONPATH=src python -m repro_torch.launch.storm_serve --device cpu
 
-``--hot-capacity`` serves the tenants through the tiered store. The wire
-front-end (``--listen``) and privacy (``--epsilon-total``) are not ported
-yet and exit with an error.
+* **wire front-end** (``--listen HOST:PORT``): serves the framed protocol
+  of ``serve.wire`` to socket clients; the engine thread keeps ``--depth``
+  ticks in flight and queue overflow becomes explicit backpressure errors:
+
+      PYTHONPATH=src python -m repro_torch.launch.storm_serve --tenants 8 \\
+          --listen 127.0.0.1:7077 --max-pending-rows 4096
+
+``--hot-capacity`` serves the tenants through the tiered store.
+``--epsilon-total`` (with ``--epsilon-release``, ``--delta``,
+``--mechanism``, ``--on-exhaust``) serves privatize-on-read under a finite
+``ReleasePolicy``; without it the gateway is the non-private one.
 """
 
 from __future__ import annotations
 
 import argparse
 import itertools
+import threading
 import time
 from collections import deque
 from typing import Iterator, List, Optional, Sequence, Union
@@ -24,6 +34,7 @@ from typing import Iterator, List, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core import lsh
+from repro_torch.core.privacy import ReleasePolicy
 from repro_torch.core.sketch import counter_dtype
 from repro_torch.device import generator, resolve_device
 from repro_torch.serve.storm_gateway import (
@@ -113,6 +124,14 @@ def _drive_synthetic(gw, args: argparse.Namespace) -> dict:
         print(f"cohort fits: {gw.fits_run} x {args.fit_surrogate} over "
               f"{min(args.fit_cohort, args.tenants)} tenants "
               f"({args.fit_steps} DFO steps each, drained between ticks)")
+    stats = gw.queue_stats()
+    if "privacy" in stats:
+        p = stats["privacy"]
+        print(f"privacy: {p['mechanism']} eps_total={p['epsilon_total']} "
+              f"eps/release={p['epsilon_release']} "
+              f"on_exhaust={p['on_exhaust']} -> {p['releases']} releases, "
+              f"{len(p['exhausted'])} tenants exhausted, "
+              f"{p['queries_refused']} queries refused")
     if hasattr(gw, "tiers"):
         tier = gw.queue_stats()["tier"]
         print(f"tiered bank: T={gw.tenants} hot={tier['hot_capacity']} "
@@ -126,10 +145,50 @@ def _drive_synthetic(gw, args: argparse.Namespace) -> dict:
               f"B={gw.params.buckets} ({gw.bank.memory_bytes():,} bytes)")
     return {"seconds": dt, "completed": completed,
             "points": gw.points_served, "rows": gw.rows_ingested,
-            "trace_count": gw.trace_count, "fits": gw.fits_run}
+            "trace_count": gw.trace_count, "fits": gw.fits_run,
+            "privacy": stats.get("privacy")}
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+def _drive_listen(gw, args: argparse.Namespace,
+                  stop: Optional[threading.Event] = None) -> dict:
+    """Serve the wire protocol until Ctrl-C (or ``stop`` is set), printing
+    the gateway's state every 2 s; returns the last state."""
+    from repro_torch.serve.wire import StormWireServer
+
+    host, _, port = args.listen.rpartition(":")
+    server = StormWireServer(gw, host or "127.0.0.1", int(port),
+                             depth=args.depth).start()
+    addr = server.address
+    print(f"listening on {addr[0]}:{addr[1]} "
+          f"(S={gw.tenants}, I={gw.ingest_slots}, Q={gw.query_slots}, "
+          f"caps rows={gw.max_pending_rows} "
+          f"points={gw.max_pending_points})", flush=True)
+    stop = stop if stop is not None else threading.Event()
+    try:
+        while not stop.wait(2.0):
+            s = gw.queue_stats()
+            line = (f"ticks={s['ticks']} pending={s['pending_requests']} "
+                    f"rows={s['rows_ingested']} "
+                    f"points={s['points_served']} "
+                    f"traces={s['trace_count']}")
+            if "privacy" in s:
+                line += (f" releases={s['privacy']['releases']} "
+                         f"exhausted={len(s['privacy']['exhausted'])}")
+            print(line, flush=True)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    s = gw.queue_stats()
+    return {"address": addr, "ticks": s["ticks"],
+            "rows": s["rows_ingested"], "points": s["points_served"],
+            "trace_count": s["trace_count"], "privacy": s.get("privacy")}
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         stop: Optional[threading.Event] = None) -> dict:
+    """Parse ``argv`` and run; ``stop`` ends a ``--listen`` server (Ctrl-C
+    does from a terminal). Returns what the drive printed, as numbers."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tenants", type=int, default=8)
     ap.add_argument("--dim", type=int, default=8, help="sketch-space dim")
@@ -171,16 +230,32 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--listen", metavar="HOST:PORT", default=None,
-                    help="not ported yet: the wire front-end")
+                    help="serve the wire protocol instead of synthetic "
+                         "traffic (port 0 = ephemeral)")
+    ap.add_argument("--depth", type=int, default=2,
+                    help="in-flight ticks in the wire engine loop")
     ap.add_argument("--epsilon-total", type=float, default=None,
-                    help="not ported yet: privatize-on-read serving")
+                    help="per-tenant lifetime eps budget (a finite value "
+                         "enables privatize-on-read serving; omit for the "
+                         "non-private gateway)")
+    ap.add_argument("--epsilon-release", type=float, default=1.0,
+                    help="eps charged per count release (one release per "
+                         "tenant per tick covers all its coalesced queries)")
+    ap.add_argument("--delta", type=float, default=1e-6,
+                    help="gaussian-mechanism delta (--mechanism gaussian)")
+    ap.add_argument("--mechanism", choices=("laplace", "gaussian"),
+                    default="laplace")
+    ap.add_argument("--on-exhaust", choices=("refuse", "stale"),
+                    default="refuse",
+                    help="exhausted tenants: terminal budget_exceeded "
+                         "refusal, or serve the last cached release")
     args = ap.parse_args(argv)
-    if args.listen is not None:
-        ap.error("--listen: the wire front-end is not ported yet (ROADMAP "
-                 "Queue 1, item 10: the wire slice)")
+    policy = None
     if args.epsilon_total is not None:
-        ap.error("--epsilon-total: privatize-on-read serving is not ported "
-                 "yet (ROADMAP Queue 1, item 10: the privacy slice)")
+        policy = ReleasePolicy(epsilon_total=args.epsilon_total,
+                               epsilon_release=args.epsilon_release,
+                               delta=args.delta, mechanism=args.mechanism,
+                               on_exhaust=args.on_exhaust)
     dev = resolve_device(args.device)
     params = lsh.init_srp(generator(args.seed, dev), args.rows, args.planes,
                           args.dim + 2, device=dev)
@@ -193,6 +268,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                 count_dtype=counter_dtype(args.count_dtype),
                                 max_pending_rows=args.max_pending_rows,
                                 max_pending_points=args.max_pending_points,
+                                privacy=policy, privacy_seed=args.seed,
                                 device=dev)
     else:
         gw = StormGateway(params, args.tenants,
@@ -200,7 +276,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                           ingest_slots=args.ingest_slots,
                           max_pending_rows=args.max_pending_rows,
                           max_pending_points=args.max_pending_points,
+                          privacy=policy, privacy_seed=args.seed,
                           device=dev)
+    if args.listen is not None:
+        return _drive_listen(gw, args, stop)
     return _drive_synthetic(gw, args)
 
 

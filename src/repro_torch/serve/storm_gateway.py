@@ -1,5 +1,5 @@
 """STORM serving gateway: one fused banked insert and one fused banked query
-per tick (port of ``repro.serve.storm_gateway``, meshless and non-private).
+per tick (port of ``repro.serve.storm_gateway``, meshless).
 
 The serving unit is a :class:`~repro_torch.core.sketch.SketchBank`: S
 tenants' counter tables behind one endpoint under one hash family. The
@@ -44,26 +44,45 @@ device; ``staging_waits`` counts those waits). Packing (the only queue
 mutation) happens at start time in dispatch order and every tick runs on
 one stream, so the pipelined loop is bit-identical to the synchronous one.
 
+**Privacy.** A finite :class:`~repro_torch.core.privacy.ReleasePolicy`
+makes every read a privatize-on-read: ONE noisy release per (tenant,
+counter version) covers all the queries a tick coalesces, charged to the
+tenant's ledger; an exhausted tenant is refused or served its last release
+(``policy.on_exhaust``). It adds ONE tick body, the private query
+(``trace_count`` <= 4): on the device, ``released = where(fresh, f32(counts)
++ noise, lane)`` is written into the tenant's lane of an ``(S, R, B)`` f32
+buffer, and one banked query over the lanes (the RACE kernels' f32 variant)
+runs with the release-time counts. The plans and the noise are host work
+(numpy, ``PrivateBankView``); the noise, the fresh flags and the counts
+(int32 bits) ride in the same single transfer, ``[zbuf | zmask | qbuf |
+qmask | noise | fresh | n_used]``. A tick with traffic runs the ingest
+body if it has rows, then the private query body if it has placed points.
+Private fits plan their reads in ``tick_start`` and build the released
+sub-bank on the device behind the tick. ``None`` or a noiseless policy
+builds none of this: the gateway is the non-private one.
+
 Correctness contract: a tenant's counters after any interleaving of ticks
 equal the lone ``sketch_dataset`` build of its stream bit for bit; query
 results equal standalone ``ops.query_theta_with_weights`` calls against the
-tenant's lone sketch; a gateway fit equals the offline ``erm.fit_many``
-over the same counters and seed.
+tenant's lone sketch (under privacy: against its release); a gateway fit
+equals the offline ``erm.fit_many`` over the same counters (or released
+tables) and seed.
 
-Not ported yet: the privacy layer (the reference's fourth tick body and its
-``privacy``/``private_view`` arguments) and the tenant mesh.
+Not ported yet: the tenant mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from collections import deque
-from typing import Deque, List, Optional, Sequence, Union
+from collections import defaultdict, deque
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core import dfo, erm, fleet, losses, lsh, sketch as sketch_lib
+from repro_torch.core import dfo, erm, fleet, losses, lsh
+from repro_torch.core import privacy as privacy_lib
+from repro_torch.core import sketch as sketch_lib
 from repro_torch.device import DeviceLike, generator as make_generator
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -154,7 +173,13 @@ class FitRequest:
 
 @dataclasses.dataclass
 class FitResult:
-    """Iterate-space cohort fit: row ``i`` is ``tenants[i]``'s model."""
+    """Iterate-space cohort fit: row ``i`` is ``tenants[i]``'s model.
+
+    ``status`` under a finite privacy policy: ``"ok"``, ``"stale"`` (a
+    cohort member trained from its last cached release) or ``"refused"``
+    (an exhausted member without one; ``theta`` and ``fleet_losses`` are
+    zeros).
+    """
 
     rid: int
     tenants: List[int]
@@ -165,6 +190,10 @@ class FitResult:
 
 @dataclasses.dataclass
 class QueryResult:
+    """``status``: ``"ok"``, ``"stale"`` (served from the tenant's last
+    cached release after its budget ran out) or ``"refused"`` (exhausted;
+    ``losses`` are zeros)."""
+
     rid: int
     tenant: int
     losses: np.ndarray  # (q,) float32, row i for thetas[i]
@@ -216,9 +245,10 @@ class InflightTick:
     an asynchronous copy fills, complete once the event ``ready`` has
     passed (on the CPU the estimates themselves, ``ready`` None), and
     ``placements``/``completes``/``ingest_done`` are the host bookkeeping
-    that turns the readback into :class:`TickReport` entries; ``fits`` pairs
-    each fit request with its cohort's int32 counters, gathered behind the
-    tick's ingest.
+    that turns the readback into :class:`TickReport` entries; ``fits`` holds
+    each fit request with its cohort's counters (int32, or released f32
+    tables under privacy), gathered behind the tick's ingest, and its
+    status.
     """
 
     tick: int
@@ -228,13 +258,14 @@ class InflightTick:
     ingest_done: List[IngestResult]
     rows: int
     points: int
-    fits: list = dataclasses.field(default_factory=list)  # (req, sub-bank)
+    fits: list = dataclasses.field(default_factory=list)  # (req, bank, status)
     ready: Optional[torch.cuda.Event] = None
 
 
 def run_fit_request(req: FitRequest, bank: sketch_lib.SketchBank,
                     params: lsh.LSHParams) -> FitResult:
-    """One cohort fit against an int32 sub-bank (row i = ``tenants[i]``).
+    """One cohort fit against a sub-bank (row i = ``tenants[i]``): int32
+    counters, or released f32 tables under privacy.
 
     The request's knobs map onto ONE ``erm.fit_many`` call on the bank's
     device, seeded by ``device.generator(req.seed)``, so a gateway fit
@@ -309,6 +340,10 @@ class StormGateway:
         bank: Optional[sketch_lib.SketchBank] = None,
         max_pending_rows: Optional[int] = None,
         max_pending_points: Optional[int] = None,
+        privacy: Optional[privacy_lib.ReleasePolicy] = None,
+        privacy_seed: int = 0,
+        private_view: Optional[privacy_lib.PrivateBankView] = None,
+        privacy_key_of: Optional[Callable[[int], int]] = None,
         device: DeviceLike = None,
     ):
         """Args:
@@ -326,6 +361,17 @@ class StormGateway:
           max_pending_rows / max_pending_points: per-tenant queue caps; a
             submit beyond one raises :class:`Backpressure`. ``None`` leaves
             the queue unbounded.
+          privacy: optional :class:`~repro_torch.core.privacy.ReleasePolicy`.
+            ``None`` or a noiseless policy leaves the gateway exactly as
+            without one (nothing private is built). A finite policy makes
+            every read a privatize-on-read (the module note).
+          privacy_seed: seed of the release noise stream.
+          private_view: a shared
+            :class:`~repro_torch.core.privacy.PrivateBankView` (the tiered
+            gateway shares one global view with its inner gateway).
+          privacy_key_of: maps a bank slot to its ledger key (identity by
+            default; the tiered gateway maps slot -> GLOBAL tenant, so
+            budgets follow tenants across promote/demote).
           device: where the bank and the tick bodies live (``None``: the
             card, raising without one).
         """
@@ -372,19 +418,53 @@ class StormGateway:
         self.rows_ingested = 0
         self.points_served = 0
         self.fits_run = 0
+        self.queries_refused = 0
+        self.fits_refused = 0
         self._signatures: set = set()
 
-        # The fused transfer's layout [zbuf | zmask | qbuf | qmask], its
+        # Privacy: None or a noiseless policy builds nothing private.
+        self.privacy = privacy
+        self._private = privacy is not None and not privacy.noiseless
+        self._privacy_key_of = privacy_key_of or (lambda slot: slot)
+        self.private_view: Optional[privacy_lib.PrivateBankView] = None
+        if self._private:
+            self.private_view = (private_view if private_view is not None
+                                 else privacy_lib.PrivateBankView(
+                                     privacy, seed=privacy_seed))
+            # Lane i holds slot i's last released table, so a stale read
+            # needs no host round trip.
+            self._release = torch.zeros(
+                (tenants, self.params.rows, self.params.buckets),
+                dtype=torch.float32, device=dev)
+            # Counter versions (cumulative packed rows, equal to the device
+            # n: the host packs every row) keyed by ledger key, seeded from
+            # a warm bank.
+            self._rows_of: Dict[int, int] = defaultdict(int)
+            for slot, n0 in enumerate(self._n.cpu().tolist()):
+                if n0:
+                    self._rows_of[self._privacy_key_of(slot)] += int(n0)
+
+        # The fused transfer's layout [zbuf | zmask | qbuf | qmask], and
+        # under privacy [... | noise | fresh | n_used (int32 bits)], its
         # device buffer and the views the tick bodies read.
         s, i_cap, q_cap = tenants, ingest_slots, query_slots
         self._z_end = s * i_cap * self.ingest_dim
         self._zm_end = self._z_end + s * i_cap
         self._q_end = self._zm_end + s * q_cap * self.dim
         self._qm_end = self._q_end + s * q_cap
-        self._flat = torch.zeros(self._qm_end, dtype=torch.float32, device=dev)
+        self._end = self._qm_end
+        if self._private:
+            self._nz_end = self._qm_end + s * self.params.rows * \
+                self.params.buckets
+            self._fr_end = self._nz_end + s
+            self._end = self._fr_end + s
+        self._flat = torch.zeros(self._end, dtype=torch.float32, device=dev)
         self._zbuf, self._zmask, self._qbuf, self._qmask = self._views(
             self._flat)
-        self._staging = _StagingRing(self._qm_end, dev)
+        if self._private:
+            self._noise, self._fresh, self._n_used = self._release_views(
+                self._flat)
+        self._staging = _StagingRing(self._end, dev)
         # Tenant-major query slots: row i reads table i // Q (member-major
         # routing with member_map = arange(S)): in [0, S) by construction,
         # so the banked query takes it as checked and reads nothing back.
@@ -398,6 +478,14 @@ class StormGateway:
                 flat[self._z_end:self._zm_end].view(s, i_cap),
                 flat[self._zm_end:self._q_end].view(s * q_cap, self.dim),
                 flat[self._q_end:self._qm_end])
+
+    def _release_views(self, flat: Tensor):
+        """``(noise (S, R, B), fresh (S,), n_used (S,) int32)`` views of a
+        fused buffer of a private gateway."""
+        return (flat[self._qm_end:self._nz_end].view(
+                    self.tenants, self.params.rows, self.params.buckets),
+                flat[self._nz_end:self._fr_end],
+                flat[self._fr_end:self._end].view(torch.int32))
 
     # -- request plumbing ---------------------------------------------------
 
@@ -479,7 +567,7 @@ class StormGateway:
             depth[st.req.tenant] += 1
         for st in self._query_q:
             depth[st.req.tenant] += 1
-        return {
+        stats = {
             "tenants": self.tenants,
             "ticks": self.ticks,
             "pending_requests": self.pending,
@@ -492,6 +580,15 @@ class StormGateway:
             "fits_run": self.fits_run,
             "trace_count": self.trace_count,
         }
+        if self._private:
+            stats["privacy"] = self.privacy_stats()
+        return stats
+
+    def privacy_stats(self) -> dict:
+        """The view's JSON-safe budget summary plus the refusal counts."""
+        return dict(self.private_view.summary(),
+                    queries_refused=self.queries_refused,
+                    fits_refused=self.fits_refused)
 
     @property
     def bank(self) -> sketch_lib.SketchBank:
@@ -506,7 +603,8 @@ class StormGateway:
     @property
     def trace_count(self) -> int:
         """Distinct (body, shapes, dtype) signatures the tick bodies have
-        run: <= 3 for any request mix over the gateway's life."""
+        run: <= 3 for any request mix over the gateway's life, <= 4 with a
+        finite privacy policy (the private query body)."""
         return len(self._signatures)
 
     @property
@@ -539,12 +637,41 @@ class StormGateway:
             mode=self.mode, sketch_idx=self._qidx, index_checked=True)
         return torch.where(self._qmask > 0, est, 0.0)
 
+    def _private_query(self) -> Tensor:
+        """The private query body: this tick's releases into the lanes, then
+        ONE banked query over the lanes with the release-time counts.
+
+        A fresh slot's lane becomes ``f32(counts) + noise`` (widened before
+        the add); any other lane keeps its last release. Masked slots
+        return 0.0.
+        """
+        released = torch.where(self._fresh[:, None, None] > 0,
+                               self._counts.to(torch.float32) + self._noise,
+                               self._release)
+        self._release.copy_(released)
+        est = ops.query_theta_with_weights(
+            sketch_lib.SketchBank(counts=self._release, n=self._n_used),
+            self.w, self._qbuf, paired=self.paired, mode=self.mode,
+            sketch_idx=self._qidx, index_checked=True)
+        return torch.where(self._qmask > 0, est, 0.0)
+
     def _run_body(self, ingest: bool, query: bool) -> Optional[Tensor]:
-        """Run one of the three bodies (full, ingest-only, query-only)."""
-        name = {(True, True): "full", (True, False): "ingest",
-                (False, True): "query"}[(ingest, query)]
+        """Run the tick's bodies: one of the three (full, ingest-only,
+        query-only), or under privacy the ingest body and then the private
+        query body, each where the tick has its traffic."""
         shapes = tuple(tuple(t.shape) for t in (
             self._counts, self._n, self._zbuf, self._qbuf))
+        if self._private:
+            est = None
+            if ingest:
+                self._signatures.add(("ingest", shapes, self.count_dtype))
+                self._ingest_half()
+            if query:
+                self._signatures.add(("private", shapes, self.count_dtype))
+                est = self._private_query()
+            return est
+        name = {(True, True): "full", (True, False): "ingest",
+                (False, True): "query"}[(ingest, query)]
         self._signatures.add((name, shapes, self.count_dtype))
         if ingest:
             self._ingest_half()
@@ -630,20 +757,48 @@ class StormGateway:
         if self._ingest_q:
             host[:self._zm_end].zero_()
             rows, ingest_done = self._pack_ingest(zbuf, zmask)
+        plans: Dict[int, privacy_lib.ReadPlan] = {}
+        refused: List[_PendingQuery] = []
+        if self._private:
+            # The packed rows are this tick's inserts: versions advance as
+            # the device n does.
+            if rows:
+                per_slot = zmask.sum(axis=1)
+                for slot in np.nonzero(per_slot)[0]:
+                    self._rows_of[self._privacy_key_of(int(slot))] += int(
+                        per_slot[slot])
+            plans = self._plan_private_reads()
+            refused = self._refuse_queries(
+                {slot for slot, plan in plans.items()
+                 if plan.status == "refuse"})
         placements, completes = [], []
         if self._query_q:
-            host[self._zm_end:].zero_()
+            host[self._zm_end:self._qm_end].zero_()
             placements, completes = self._pack_queries(
                 qbuf.reshape(s, self.query_slots, self.dim),
                 qmask.reshape(s, self.query_slots))
+        completes = refused + completes
+        for st, _, t, _, _ in placements:
+            if t in plans and plans[t].status == "stale":
+                st.status = "stale"
         do_ingest, do_query = rows > 0, bool(placements)
         est, ready = None, None
         if do_ingest or do_query:
             lo = 0 if do_ingest else self._zm_end
-            hi = self._qm_end if do_query else self._zm_end
+            hi = self._zm_end
+            if do_query:
+                hi = self._qm_end
+                if self._private:
+                    self._pack_releases(host, plans)
+                    hi = self._end
             self._flat[lo:hi].copy_(host[lo:hi], non_blocking=True)
             self._staging.copied(k)
             est = self._run_body(do_ingest, do_query)
+            if self._private and do_query:
+                for slot, plan in plans.items():
+                    if plan.status == "fresh":
+                        self.private_view.mark_resident(
+                            self._privacy_key_of(slot))
         if est is not None and est.is_cuda:
             # Queue the readback now: waiting on its event waits for this
             # tick's work only, not for ticks launched after it.
@@ -658,24 +813,133 @@ class StormGateway:
                             rows=rows, points=points,
                             fits=self._gather_fits(), ready=ready)
 
+    # -- privatize-on-read planning (finite policy only) --------------------
+
+    def _plan_private_reads(self) -> Dict[int, privacy_lib.ReadPlan]:
+        """One plan per slot with >= 1 queued query point (each packs at
+        least one point this tick, so it needs at most one release; a slot
+        with only empty requests reads nothing and spends nothing). Runs
+        after the ingest is packed: plans see this tick's versions."""
+        shape = (self.params.rows, self.params.buckets)
+        plans: Dict[int, privacy_lib.ReadPlan] = {}
+        for slot in range(self.tenants):
+            if self._pending_points[slot] <= 0:
+                continue
+            key = self._privacy_key_of(slot)
+            plans[slot] = self.private_view.plan_read(
+                key, self._rows_of[key], shape, paired=self.paired)
+        return plans
+
+    def _refuse_queries(self, refused_slots) -> List[_PendingQuery]:
+        """Complete every pending query of the refused slots, typed, before
+        packing: refused requests take no slots, and zero-point requests
+        pass (they read nothing)."""
+        if not refused_slots:
+            return []
+        refused: List[_PendingQuery] = []
+        remaining: Deque[_PendingQuery] = deque()
+        for st in self._query_q:
+            pts_left = st.req.thetas.shape[0] - st.cursor
+            if st.req.tenant in refused_slots and pts_left > 0:
+                st.status = "refused"
+                st.out[st.cursor:] = 0.0
+                self._pending_points[st.req.tenant] -= pts_left
+                refused.append(st)
+            else:
+                remaining.append(st)
+        self._query_q = remaining
+        self.queries_refused += len(refused)
+        return refused
+
+    def _pack_releases(self, host: Tensor,
+                       plans: Dict[int, privacy_lib.ReadPlan]) -> None:
+        """The private tail of the staging buffer: each fresh slot's noise,
+        every slot's fresh flag and release-time count (0 where unplanned;
+        a slot that is not fresh keeps its lane, whatever its noise)."""
+        noise, fresh, n_used = (v.numpy() for v in self._release_views(host))
+        fresh[:] = 0.0
+        n_used[:] = 0
+        for slot, plan in plans.items():
+            n_used[slot] = plan.n
+            if plan.status == "fresh":
+                noise[slot] = plan.noise
+                fresh[slot] = 1.0
+
     def _gather_fits(self) -> list:
-        """Take the fit queue: each request with an int32 copy of its
-        cohort's counters, made on the device behind this tick's ingest
-        (no host read); the fits run in :meth:`tick_finish`."""
+        """Take the fit queue: each request with its cohort's counters,
+        copied on the device behind this tick's ingest (no host read), and
+        its status; the fits run in :meth:`tick_finish`. Under privacy the
+        counters are the members' releases (:meth:`_gather_private`)."""
         out = []
         while self._fit_q:
             req = self._fit_q.popleft()
+            if self._private:
+                out.append(self._gather_private(
+                    req, [self._privacy_key_of(t) for t in req.tenants],
+                    lambda j, req=req: self._counts[req.tenants[j]],
+                    lambda j, req=req: self._release[req.tenants[j]]))
+                continue
             out.append((req, sketch_lib.SketchBank(
                 counts=torch.stack([self._counts[t] for t in req.tenants]
                                    ).to(torch.int32),
-                n=torch.stack([self._n[t] for t in req.tenants]))))
+                n=torch.stack([self._n[t] for t in req.tenants])), "ok"))
         return out
 
-    def _run_fits(self, fits: list) -> List[FitResult]:
-        """One ``erm.fit_many`` per gathered request; the tick bodies and
-        the counters are untouched."""
-        out = [run_fit_request(req, sub, self.params) for req, sub in fits]
-        self.fits_run += len(out)
+    def _gather_private(self, req: FitRequest, keys: List[int],
+                        table_of: Callable[[int], Tensor],
+                        lane_of: Callable[[int], Tensor]) -> tuple:
+        """Plan each member's read (ledger key ``keys[j]``) and build the
+        released sub-bank on the device: ``f32(table_of(j)) + noise`` for a
+        fresh plan, a copy of ``lane_of(j)`` for a stale one. The noise and
+        the release-time counts go up from pinned memory without a wait. A
+        refused member refuses the whole request (the members before it
+        stay planned, as in the reference)."""
+        shape = (self.params.rows, self.params.buckets)
+        plans = []
+        for key in keys:
+            plan = self.private_view.plan_read(key, self._rows_of[key], shape,
+                                               paired=self.paired)
+            if plan.status == "refuse":
+                return req, None, "refused"
+            plans.append(plan)
+        pinned = self.device.type == "cuda"
+        noise = torch.empty((len(plans),) + shape, dtype=torch.float32,
+                            pin_memory=pinned)
+        ns = torch.empty((len(plans),), dtype=torch.int32, pin_memory=pinned)
+        noise_np, ns_np = noise.numpy(), ns.numpy()
+        for j, plan in enumerate(plans):
+            ns_np[j] = plan.n
+            if plan.status == "fresh":
+                noise_np[j] = plan.noise
+        noise = noise.to(self.device, non_blocking=True)
+        tables = [table_of(j).to(torch.float32) + noise[j]
+                  if plan.status == "fresh" else lane_of(j)
+                  for j, plan in enumerate(plans)]
+        stale = any(plan.status == "stale" for plan in plans)
+        return (req, sketch_lib.SketchBank(
+            counts=torch.stack(tables),
+            n=ns.to(self.device, non_blocking=True)),
+            "stale" if stale else "ok")
+
+    def _refused_fit(self, req: FitRequest) -> FitResult:
+        s = len(req.tenants)
+        self.fits_refused += 1
+        return FitResult(rid=req.rid, tenants=list(req.tenants),
+                         theta=np.zeros((s, self.dim), np.float32),
+                         fleet_losses=np.zeros((s, req.restarts), np.float32),
+                         status="refused")
+
+    def _fit_results(self, fits: list) -> List[FitResult]:
+        """One ``erm.fit_many`` per gathered request (a refused one gets
+        zeros); the tick bodies and the counters are untouched."""
+        out = []
+        for req, sub, status in fits:
+            if status == "refused":
+                out.append(self._refused_fit(req))
+                continue
+            res = run_fit_request(req, sub, self.params)
+            res.status = status
+            out.append(res)
         return out
 
     def tick_finish(self, inflight: InflightTick) -> TickReport:
@@ -700,7 +964,8 @@ class StormGateway:
                                        status=st.status))
         self.rows_ingested += inflight.rows
         self.points_served += inflight.points
-        fits = self._run_fits(inflight.fits)
+        fits = self._fit_results(inflight.fits)
+        self.fits_run += len(fits)
         return TickReport(tick=inflight.tick, results=results,
                           rows_ingested=inflight.rows,
                           points_served=inflight.points,

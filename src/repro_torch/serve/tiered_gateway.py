@@ -1,5 +1,5 @@
 """Tiered serving gateway: hot/cold tenant store around the fused tick (port
-of ``repro.serve.tiered_gateway``, meshless and non-private).
+of ``repro.serve.tiered_gateway``, meshless).
 
 :class:`TieredStormGateway` serves ``num_tenants`` GLOBAL tenants through a
 :class:`~repro_torch.serve.storm_gateway.StormGateway` whose bank holds only
@@ -25,10 +25,16 @@ the resident bank; this layer owns the tenant <-> slot indirection and a
   ``tick_finish``.
 
 ``trace_count`` is the inner gateway's three tick bodies plus the bank's
-one swap body: <= 4 for the gateway's life under any hot/cold mix. With
-``hot_capacity >= num_tenants`` no swap ever runs and every tick equals the
-flat gateway's; with evictions, a tenant's sketch after any promote/demote
-history equals its always-resident counterpart bit for bit.
+one swap body: <= 4 for the gateway's life under any hot/cold mix, <= 5
+with a finite :class:`~repro_torch.core.privacy.ReleasePolicy` (the inner
+gateway's private query body). Privacy is scoped by GLOBAL tenant: one
+shared view keyed by global tenant backs the inner gateway, so budgets,
+release windows and refusals follow tenants across promote/demote; a
+demoted tenant's stale lane is dropped, and a private fit reads a cold
+tenant's exact host copy plus noise. With ``hot_capacity >= num_tenants``
+no swap ever runs and every tick equals the flat gateway's; with
+evictions, a tenant's sketch after any promote/demote history equals its
+always-resident counterpart bit for bit.
 """
 
 from __future__ import annotations
@@ -40,7 +46,9 @@ from typing import Deque, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core import losses, lsh, sketch as sketch_lib
+from repro_torch.core import losses, lsh
+from repro_torch.core import privacy as privacy_lib
+from repro_torch.core import sketch as sketch_lib
 from repro_torch.core.tiered import TieredBank
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve.storm_gateway import (
@@ -53,7 +61,6 @@ from repro_torch.serve.storm_gateway import (
     StormGateway,
     TickReport,
     drain,
-    run_fit_request,
 )
 
 
@@ -75,6 +82,8 @@ class TieredStormGateway:
         max_pending_points: Optional[int] = None,
         promote_per_tick: int = 2,
         score_fn=None,
+        privacy: Optional[privacy_lib.ReleasePolicy] = None,
+        privacy_seed: int = 0,
         device: DeviceLike = None,
     ):
         """Args mirror :class:`StormGateway` plus the tier knobs:
@@ -87,6 +96,9 @@ class TieredStormGateway:
             each).
           score_fn: eviction priority (``tiered.TenantStats -> comparable``;
             lowest evicts first); ``None`` keeps LRU by tick.
+          privacy: optional :class:`~repro_torch.core.privacy.ReleasePolicy`;
+            the budget is per GLOBAL tenant (one shared view).
+          privacy_seed: seed of the release noise stream.
         """
         if num_tenants < 1:
             raise ValueError(f"need at least one tenant; got {num_tenants}")
@@ -97,6 +109,10 @@ class TieredStormGateway:
             rows=params.rows, buckets=params.buckets, dtype=count_dtype,
             score_fn=score_fn, device=dev,
         )
+        self.privacy = privacy
+        self._private = privacy is not None and not privacy.noiseless
+        self.private_view = (privacy_lib.PrivateBankView(
+            privacy, seed=privacy_seed) if self._private else None)
         counts, n = self.tiers.init_resident()
         self.gw = StormGateway(
             params, self.tiers.hot_capacity, paired=paired,
@@ -104,7 +120,10 @@ class TieredStormGateway:
             bank=sketch_lib.SketchBank(counts=counts, n=n),
             # Caps are enforced HERE, per global tenant: the inner queues
             # only hold traffic this layer already admitted.
-            max_pending_rows=None, max_pending_points=None, device=dev,
+            max_pending_rows=None, max_pending_points=None,
+            privacy=privacy, privacy_seed=privacy_seed,
+            private_view=self.private_view, privacy_key_of=self._slot_key,
+            device=dev,
         )
         self.max_pending_rows = max_pending_rows
         self.max_pending_points = max_pending_points
@@ -121,6 +140,12 @@ class TieredStormGateway:
         self.deferred_promotions = 0
 
     # -- tenant-space accounting --------------------------------------------
+
+    def _slot_key(self, slot: int) -> int:
+        """Ledger key of a resident slot: its GLOBAL tenant (a free slot,
+        which carries no traffic, maps to a negative key no tenant has)."""
+        tenant = self.tiers.slot_tenant[slot]
+        return tenant if tenant is not None else -1 - slot
 
     def _inner_pending(self, tenant: int) -> tuple:
         """(rows, points) queued but unpacked in the inner gateway."""
@@ -230,7 +255,8 @@ class TieredStormGateway:
 
     @property
     def trace_count(self) -> int:
-        """Tick bodies + the swap body: <= 4 for the gateway's life."""
+        """Tick bodies + the swap body: <= 4 for the gateway's life (<= 5
+        with a finite privacy policy)."""
         return self.gw.trace_count + self.tiers.trace_count
 
     # -- promotion scheduling -----------------------------------------------
@@ -269,6 +295,10 @@ class TieredStormGateway:
             self.promotions += 1
             if victim is not None:
                 self.demotions += 1
+                if self._private:
+                    # The victim's lane is about to be reused: its stale
+                    # release is gone; its window survives.
+                    self.private_view.drop_resident(victim)
             promoted.add(tenant)
         if not promoted:
             return
@@ -304,16 +334,29 @@ class TieredStormGateway:
         return inflight
 
     def _gather_fits(self) -> list:
-        """Take the fit queue: each request with an int32 copy of its
-        cohort's counters, read where each tenant lives (no host wait)."""
+        """Take the fit queue: each request with its cohort's counters, read
+        where each tenant lives (no host wait), and its status. Under
+        privacy the members' releases, planned on the shared view by global
+        tenant: a fresh one reads the tenant's table wherever it lives
+        (hot slot or exact cold copy), a stale one its lane (a stale plan
+        implies residency: lanes drop on demotion)."""
         out = []
+        gw = self.gw
         while self._fit_q:
             req = self._fit_q.popleft()
-            tables = [self.tiers.device_table(t, self.gw._counts, self.gw._n)
+            table = lambda j, req=req: self.tiers.device_table(  # noqa: E731
+                req.tenants[j], gw._counts, gw._n)[0]
+            if self._private:
+                out.append(gw._gather_private(
+                    req, list(req.tenants), table,
+                    lambda j, req=req: gw._release[
+                        self.tiers.slot_of[req.tenants[j]]]))
+                continue
+            tables = [self.tiers.device_table(t, gw._counts, gw._n)
                       for t in req.tenants]
             out.append((req, sketch_lib.SketchBank(
                 counts=torch.stack([c for c, _ in tables]).to(torch.int32),
-                n=torch.stack([n for _, n in tables]))))
+                n=torch.stack([n for _, n in tables])), "ok"))
         return out
 
     def tick_finish(self, inflight: InflightTick) -> TickReport:
@@ -325,9 +368,8 @@ class TieredStormGateway:
         for done in rep.ingest_done:
             done.tenant = self._rid_tenant.pop(done.rid, done.tenant)
         self.tiers.flush_evictions(through_tick=inflight.tick)
-        fits = self._gathered.pop(inflight.tick, [])
-        rep.fits.extend(run_fit_request(req, sub, self.gw.params)
-                        for req, sub in fits)
+        fits = self.gw._fit_results(self._gathered.pop(inflight.tick, []))
+        rep.fits.extend(fits)
         self.fits_run += len(fits)
         return rep
 
@@ -383,7 +425,7 @@ class TieredStormGateway:
         tier.update(promotions=self.promotions, demotions=self.demotions,
                     deferred_promotions=self.deferred_promotions,
                     cold_queued=len(self._cold_q))
-        return {
+        stats = {
             "tenants": t,
             "ticks": self.gw.ticks,
             "pending_requests": self.pending,
@@ -397,3 +439,6 @@ class TieredStormGateway:
             "trace_count": self.trace_count,
             "tier": tier,
         }
+        if self._private:
+            stats["privacy"] = self.gw.privacy_stats()
+        return stats

@@ -34,6 +34,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.kernels.srp_hash",
                  "repro_torch.serve.storm_gateway",
                  "repro_torch.serve.tiered_gateway",
+                 "repro_torch.serve.wire",
+                 "repro_torch.core.privacy",
                  "repro_torch.launch.storm_serve"):
         assert name in report["modules"]
         assert name in report["loaded"]

@@ -175,6 +175,70 @@ def test_sketch_query_sums_large_counts_exactly():
     assert out.item() == np.float32(8_388_609)
 
 
+def _released_table(rng, shape):
+    """A privatized release as the privacy layer makes it: integer counts
+    widened to f32 plus Laplace noise, so the cells are not integers."""
+    counts = rng.integers(0, 50, size=shape).astype(np.float32)
+    return counts + rng.laplace(0.0, 3.0, size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("banked", [False, True], ids=["lone", "banked"])
+@pytest.mark.parametrize("seed,m,d,p,r", [(0, 17, 12, 4, 64), (1, 40, 7, 3, 33),
+                                          (2, 5, 3, 1, 100)])
+def test_sketch_query_reads_noisy_f32_tables(seed, m, d, p, r, banked):
+    """The plain queries over a non-integer f32 table against JAX's ref
+    gather on the same arrays. JAX sums the row in f32 and the port in
+    float64, so the means differ by the f32 sum's rounding only: each
+    addition rounds by at most 2^-24 of the running |sum|, hence
+    |port - jax| <= R * 2^-23 * mean|x| per point (mean|x| over the
+    point's gathered cells). Truncating the cells to integers (the
+    integer path) misses by about half a count."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(m, d)).astype(np.float32)
+    w = rng.normal(size=(p, d, r)).astype(np.float32)
+    tables = _released_table(rng, (3, r, 1 << p))
+    assert np.mean(tables != np.round(tables)) > 0.99
+    if banked:
+        idx = rng.integers(0, 3, size=m).astype(np.int32)
+        got = ref.sketch_query_banked(t(q), t(w), t(tables), t(idx, torch.int32))
+        want = jref.sketch_query_banked(jnp.asarray(q), jnp.asarray(w),
+                                        jnp.asarray(tables), jnp.asarray(idx))
+        scale = jref.sketch_query_banked(jnp.asarray(q), jnp.asarray(w),
+                                         jnp.asarray(np.abs(tables)),
+                                         jnp.asarray(idx))
+    else:
+        got = ref.sketch_query(t(q), t(w), t(tables[1]))
+        want = jref.sketch_query(jnp.asarray(q), jnp.asarray(w),
+                                 jnp.asarray(tables[1]))
+        scale = jref.sketch_query(jnp.asarray(q), jnp.asarray(w),
+                                  jnp.asarray(np.abs(tables[1])))
+    assert got.dtype == torch.float32 and got.shape == (m,)
+    bound = r * 2.0 ** -23 * np.asarray(scale, np.float64)
+    assert np.all(np.abs(got.numpy().astype(np.float64)
+                         - np.asarray(want, np.float64)) <= bound)
+
+
+@pytest.mark.parametrize("banked", [False, True], ids=["lone", "banked"])
+def test_integer_valued_f32_tables_equal_the_integer_path(banked):
+    # Sums past 2^24 included: both paths sum exactly and convert once.
+    rng = np.random.default_rng(3)
+    q = t(rng.normal(size=(33, 6)))
+    w = t(rng.normal(size=(4, 6, 2048)))
+    counts = torch.from_numpy(rng.integers(-(1 << 23), (1 << 23) + 1,
+                                           size=(2, 2048, 16)).astype(np.int32))
+    counts[1, :, :] = 8_388_609
+    if banked:
+        idx = torch.from_numpy(rng.integers(0, 2, size=33).astype(np.int32))
+        got = ref.sketch_query_banked(q, w, counts.float(), idx)
+        want = ref.sketch_query_banked(q, w, counts, idx)
+    else:
+        got = ref.sketch_query(q, w, counts[0].float())
+        want = ref.sketch_query(q, w, counts[0])
+    assert torch.equal(got, want)
+    assert torch.equal(ops.sketch_query(q, w, counts[1].float()),
+                       torch.full((33,), 8_388_609.0))
+
+
 def test_wrappers_run_plain_versions_on_cpu():
     z, w, mask = _insert_inputs(6, 40, 4, 4, 16, True)
     before = (histogram_kernel.paired_hash_histogram.launches,
@@ -184,9 +248,19 @@ def test_wrappers_run_plain_versions_on_cpu():
     q = torch.randn(9, 6, generator=torch.Generator().manual_seed(0))
     assert torch.equal(query_kernel.sketch_query(q, t(w), hist),
                        ref.sketch_query(q, t(w), hist))
+    noisy = hist.float() + 0.25
+    idx = torch.zeros(9, dtype=torch.int32)
+    for got in (query_kernel.sketch_query(q, t(w), noisy),
+                query_kernel.sketch_query_f32(q, t(w), noisy),
+                query_kernel.sketch_query_banked(q, t(w), noisy[None], idx),
+                query_kernel.sketch_query_banked_f32(q, t(w), noisy[None],
+                                                     idx)):
+        assert torch.equal(got, ref.sketch_query(q, t(w), noisy))
     # Launches count kernel launches on the card only.
     assert (histogram_kernel.paired_hash_histogram.launches,
             query_kernel.sketch_query.launches) == before
+    assert (query_kernel.sketch_query_f32.launches,
+            query_kernel.sketch_query_banked_f32.launches) == (0, 0)
 
 
 def test_ops_modes_on_cpu():

@@ -644,6 +644,100 @@ def test_query_kernels_large_batches_equal_plain_version(cuda, m, p, d):
                        ref.sketch_query_banked(q, w, counts, idx))
 
 
+def _f32_tables(gen, shape, device):
+    """Non-integer f32 tables of both signs, magnitudes 1e-2 to 1e10."""
+    mag = 10.0 ** (torch.rand(shape, generator=gen, device=device) * 12 - 2)
+    sign = torch.where(torch.rand(shape, generator=gen, device=device) < 0.3,
+                       -1.0, 1.0)
+    return (mag * sign).to(torch.float32)
+
+
+def _within_f32_bound(got, want, scale):
+    """|got - want| <= 2^-22 * mean|x| per point (``scale``: the plain
+    query over |x|). The plain float64 sum has no fixed order, so the two
+    may round to neighbouring f32 values; the kernel's order is fixed."""
+    diff = (got.double() - want.double()).abs()
+    return bool((diff <= 2.0 ** -22 * scale.double()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("banked", [False, True], ids=["lone", "banked"])
+@pytest.mark.parametrize("p", [1, 4, 9])
+@pytest.mark.parametrize("rows", [1, 33, 2048])
+@pytest.mark.parametrize("m", [0, 1, 17, 272, 512, 4096])
+def test_f32_query_kernels_equal_plain_version(cuda, m, rows, p, banked):
+    # The f32 variant: the same bits on two launches, within 2^-22 mean|x|
+    # of the plain version, one launch per non-empty call.
+    gen = torch.Generator(device=cuda).manual_seed(7 * m + rows + p)
+    w = torch.randn(p, 12, rows, generator=gen, device=cuda)
+    tables = _f32_tables(gen, (3, rows, 1 << p), cuda)
+    q = torch.randn(m, 12, generator=gen, device=cuda)
+    if banked:
+        idx = torch.randint(0, 3, (m,), generator=gen, device=cuda)
+        kernel = query_kernel.sketch_query_banked_f32
+        call = lambda c: query_kernel.sketch_query_banked(q, w, c, idx)
+        plain = lambda c: ref.sketch_query_banked(q, w, c, idx)
+    else:
+        kernel = query_kernel.sketch_query_f32
+        call = lambda c: query_kernel.sketch_query(q, w, c[1])
+        plain = lambda c: ref.sketch_query(q, w, c[1])
+    before = kernel.launches
+    got, again = call(tables), call(tables)
+    assert kernel.launches == before + 2 * (m > 0)
+    assert got.shape == (m,) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert _within_f32_bound(got, plain(tables), plain(tables.abs()))
+    # Integer-valued tables: the f32 body equals the integer body.
+    counts = torch.randint(-(1 << 20), 1 << 20, (3, rows, 1 << p),
+                           generator=gen, device=cuda, dtype=torch.int32)
+    assert torch.equal(call(counts.float()), call(counts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,d", [(4, 12), (8, 32), (4, 40)])
+@pytest.mark.parametrize("m", [8449, 70_001])
+def test_f32_query_kernels_large_batches_and_wide_rows(cuda, m, p, d):
+    # Slices at the staged weights' cap, the generic body (d = 40), and a
+    # partial workspace of many (slice, point) entries.
+    gen = torch.Generator(device=cuda).manual_seed(m + p + d)
+    w = torch.randn(p, d, 2048, generator=gen, device=cuda)
+    tables = _f32_tables(gen, (2, 2048, 1 << p), cuda)
+    q = torch.randn(m, d, generator=gen, device=cuda)
+    idx = torch.randint(0, 2, (m,), generator=gen, device=cuda)
+    got = query_kernel.sketch_query_banked(q, w, tables, idx)
+    assert torch.equal(got, query_kernel.sketch_query_banked(q, w, tables,
+                                                             idx))
+    assert _within_f32_bound(got, ref.sketch_query_banked(q, w, tables, idx),
+                             ref.sketch_query_banked(q, w, tables.abs(), idx))
+    lone = query_kernel.sketch_query(q, w, tables[0])
+    assert _within_f32_bound(lone, ref.sketch_query(q, w, tables[0]),
+                             ref.sketch_query(q, w, tables[0].abs()))
+
+
+@pytest.mark.gpu
+def test_f32_and_integer_queries_share_a_clean_workspace(cuda):
+    # f32 and integer queries in turn on one stream: each leaves the int64
+    # sums and the tickets at zero for the next.
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    w = torch.randn(4, 12, 2048, generator=gen, device=cuda)
+    counts = torch.randint(0, 1 << 20, (4, 2048, 16), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for m in (4096, 17, 512, 1, 272, 4097, 33):
+        q = torch.randn(m, 12, generator=gen, device=cuda)
+        idx = torch.randint(0, 4, (m,), generator=gen, device=cuda)
+        noisy = counts.float() + 0.5
+        got = query_kernel.sketch_query_banked(q, w, noisy, idx)
+        assert _within_f32_bound(got, ref.sketch_query_banked(q, w, noisy,
+                                                              idx),
+                                 ref.sketch_query_banked(q, w, noisy.abs(),
+                                                         idx))
+        assert _workspace_is_zero(dev)
+        assert torch.equal(query_kernel.sketch_query_banked(q, w, counts, idx),
+                           ref.sketch_query_banked(q, w, counts, idx))
+        assert _workspace_is_zero(dev)
+
+
 def _workspace_is_zero(device):
     torch.cuda.synchronize()
     stream = torch.cuda.current_stream(device).cuda_stream
