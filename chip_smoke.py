@@ -143,8 +143,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
     server, a result marked ``"stale"``; ``budget`` is ``None`` without a
     policy.
 
-The last two lines are the card (nvidia-smi's name and power limit) and
-``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
+18. distributed, on meshes of one card (``Mesh((cuda:0,))`` and
+    ``Mesh((cuda:0,) * 4)``, the stand-in for four devices): ``sharded_sketch``
+    of phase 5's 2^22-row stream against phase 5's lone build (one kernel 1
+    launch per shard) and of phase 9's rows (single-sided, R = 1024, p = 2)
+    against phase 9's (kernel 3); ``fleet_fit`` of 16 members from
+    ``fleet.seed_fleet`` over the merged sketch at the default DFO
+    configuration and ``fleet_fit_banked`` over phase 7's bank (16 tenants x
+    2 restarts; 4 tenants a shard), each against its meshless run bit for
+    bit, with kernel 2 and kernel 6 launches = shards x (steps + 2 per
+    refine pass), and their wall times beside the meshless run's; the mesh
+    gateway on phase 13's script (reports, fits, counters and ``n`` against
+    phase 13's meshless run; kernels 4 and 6 = shards x the meshless
+    ticks' launches; sync and depth 2; ``tick_start`` under sync debug mode
+    'error') and its ticks/s, ``tick_start`` p50/p99 and busy share beside
+    the meshless gateway's in turns; the tiered gateway on phase 14's cell
+    over 4 shards against phase 14's run.
+
+The ``kernels`` line's launches are the main path's (phases 5, 7, 9, 10, 12,
+13, 16) plus phase 18's mesh runs (their meshless comparisons do not
+count). The last two lines are the card (nvidia-smi's name and power limit)
+and ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
 the repository beside this file; without either it exits non-zero.
 """
 
@@ -240,6 +259,10 @@ PRIV_LONE_TENANT, PRIV_PROFILE_TICKS = 5, 16
 # The wire (phase 17): 4 tenants at the gateway's widths, 8 requests of
 # 2048 rows each, a 17-point query after each.
 WIRE_TENANTS, WIRE_CHUNKS, WIRE_POINTS = 4, 8, 17
+# Distributed (phase 18): meshes of 1 and 4 shards on one card; a fleet of
+# 16 members against the merged sketch; phase 7's bank with 2 restarts per
+# tenant.
+MESH_SHARDS, MESH_MEMBERS, MESH_RESTARTS = (1, 4), 16, 2
 
 
 
@@ -559,9 +582,17 @@ def _fit_profile(label, fit, torch, symbols):
          f"top kernels: {top}")
 
 
-def _gateway_profile(torch, gw, script):
+def _pct(v) -> str:
+    """p50 and p99 of host-clock seconds, in ms."""
+    ms = [1e3 * x for x in v]
+    return (f"p50 {statistics.median(ms):.4f} ms, p99 "
+            f"{statistics.quantiles(ms, n=100)[98]:.4f} ms")
+
+
+def _gateway_profile(torch, gw, script, label="gateway", shards=1):
     """Device busy share of ``GW_PROFILE_TICKS`` full pipelined ticks, and
-    the device time per tick of the insert and the query kernels."""
+    the device time per tick of the insert and the query kernels (one
+    launch of each per shard and tick)."""
     from torch.profiler import ProfilerActivity, profile
 
     drive(gw, script[:4])  # warm-up
@@ -579,8 +610,8 @@ def _gateway_profile(torch, gw, script):
     for sym in ("paired_hist_kernel", "sketch_query_kernel"):
         mine = [us for n, us in events if _kernel_named(sym, n)]
         seen[sym] = len(mine)
-        per_tick[sym] = sum(mine) / 1e3 / max(len(mine), 1)
-    _log(f"[time] gateway under the profiler: {len(reps)} full pipelined "
+        per_tick[sym] = shards * sum(mine) / 1e3 / max(len(mine), 1)
+    _log(f"[time] {label} under the profiler: {len(reps)} full pipelined "
          f"ticks, {wall:.3f} ms wall, device busy {busy:.3f} ms "
          f"({100 * busy / wall:.2f}%); per tick: insert "
          f"{per_tick['paired_hist_kernel']:.4f} ms "
@@ -687,8 +718,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.core import (baselines, classification, dfo, erm, losses,
-                                  lsh, regression)
+    from repro_torch.core import (baselines, classification, dfo, distributed,
+                                  erm, fleet, losses, lsh, regression)
     from repro_torch.core import sketch as sketch_lib
     from repro_torch.data import datasets
     from repro_torch.device import generator, resolve_device
@@ -700,6 +731,7 @@ def main() -> int:
     from repro_torch.serve import storm_gateway
     from repro_torch.serve import tiered_gateway as tiered_mod
     from repro_torch.serve.storm_gateway import report_key
+    from repro_torch.sharding.mesh import Mesh
 
     # -- 1. device --------------------------------------------------------------
     dev = resolve_device("cuda")  # also switches TF32 off for the plain versions
@@ -1538,7 +1570,7 @@ def main() -> int:
 
     # Pipelined at depth 2 and 3 against the synchronous loop.
     sync_keys = [report_key(r) for r in sync_reports]
-    final = log.snaps[max(log.snaps)][0]
+    final, final_n = log.snaps[max(log.snaps)]
     for depth in (2, 3):
         gp = flat_gateway(bank=warm)
         reps, *_ = drive(gp, script, depth=depth, guard=guard)
@@ -1651,6 +1683,7 @@ def main() -> int:
          f"{gt.deferred_promotions} deferred); final sketches equal the flat "
          f"64-tenant int16 gateway's; depth 2 equals sync; trace_count "
          f"{gt.trace_count}; tick_start ran under sync debug mode 'error'")
+    tiered_final = [gt.sketch_of(t) for t in range(TIERED_TENANTS)]
     del gt, gtp, flat64
 
     # -- 15. a wide regression fit: d = 40 through the wide insert -------------
@@ -2253,6 +2286,241 @@ def main() -> int:
                          if on_exhaust == "refuse" else "came back stale"))
     del wgw, pgw
 
+    # -- 18. distributed: the sharded sketch, the fleet fits, the mesh gateways
+    # Every mesh is one card named 1 or 4 times: each shard's blocks, bodies
+    # and launches are real, one after another on the card's stream.
+    t18 = time.perf_counter()
+    def meshes(axis):
+        return {s: Mesh([dev] * s, axis) for s in MESH_SHARDS}
+
+    mesh_launches = {name: 0 for name in counters}
+
+    def counted(fn, path=True):
+        """``fn()`` with every count set to 0 before and read after; a
+        mesh path's counts add to the ``kernels`` line."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        if path:
+            for name, n in got.items():
+                mesh_launches[name] += n
+        return out, got
+
+    def only(got, **want):
+        """The launch counts are exactly ``want`` (all others 0)."""
+        return all(got[name] == want.get(name, 0) for name in got)
+
+    # The sharded sketch: phase 5's stream, then phase 9's rows.
+    for shards, mesh in meshes("data").items():
+        sk, got = counted(lambda: distributed.sharded_sketch(params, z, mesh))
+        if not (torch.equal(sk.counts, fit_kernel.sketch.counts)
+                and int(sk.n) == int(fit_kernel.sketch.n) == N_ROWS
+                and sk.counts.device == mesh.first):
+            raise AssertionError(f"the {shards}-shard sketch differs from "
+                                 f"phase 5's lone build")
+        if not only(got, paired_hash_histogram=shards):
+            raise AssertionError(f"the {shards}-shard sketch made {got}")
+        _log(f"[mesh] sharded_sketch over {shards} shard(s) of "
+             f"{N_ROWS // shards} rows: equals phase 5's lone build (n = "
+             f"{int(sk.n)}); launches {got['paired_hash_histogram']} of "
+             f"kernel 1")
+    merged = sk  # the 4-shard merge
+    csk, got = counted(lambda: distributed.sharded_sketch(
+        cparams, xa, meshes("data")[4], paired=False))
+    if not (torch.equal(csk.counts, cls_kernel.sketch.counts)
+            and int(csk.n) == int(cls_kernel.sketch.n)):
+        raise AssertionError("the single-sided 4-shard sketch differs from "
+                             "phase 9's lone build")
+    if not only(got, hash_histogram=4):
+        raise AssertionError(f"the single-sided sharded sketch made {got}")
+    _log(f"[mesh] single-sided sharded_sketch (R={CLS_ROWS}, p={CLS_PLANES}) "
+         f"over 4 shards: equals phase 9's lone build; launches "
+         f"{got['hash_histogram']} of kernel 3")
+    del csk
+
+    # fleet_fit: 16 members over the merged sketch, default DFO config.
+    per_shard = steps + 2 * cfg.refine_steps
+    f_theta0, f_sig, f_lr = fleet.seed_fleet(
+        MESH_MEMBERS, dim - 2, cfg.dfo, generator=generator(SEED + 18, dev),
+        device=dev)
+
+    def run_fleet_fit(mesh):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = distributed.fleet_fit(
+            merged, params, f_theta0, cfg.dfo, mesh=mesh, sigma=f_sig,
+            learning_rate=f_lr, refine_steps=cfg.refine_steps,
+            generator=generator(SEED + 19, dev))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - start
+
+    run_fleet_fit(None)  # warm-up
+    (f_want, f_secs), got = counted(lambda: run_fleet_fit(None), path=False)
+    if not only(got, sketch_query=per_shard):
+        raise AssertionError(f"the meshless fleet fit made {got}")
+    walls = {"meshless": f_secs}
+    for shards, mesh in meshes("fleet").items():
+        (res, secs), got = counted(lambda: run_fleet_fit(mesh))
+        walls[shards] = secs
+        if not (torch.equal(res.theta, f_want.theta)
+                and torch.equal(res.losses, f_want.losses)):
+            raise AssertionError(f"fleet_fit over {shards} shard(s) differs "
+                                 f"from the meshless fit")
+        if not only(got, sketch_query=shards * per_shard):
+            raise AssertionError(f"fleet_fit over {shards} shard(s) made "
+                                 f"{got}")
+    if not torch.isfinite(f_want.theta).all():
+        raise AssertionError(f"the fleet fit gave {f_want.theta}")
+    # The fleet's final losses on the merged sketch: one query launch.
+    rq, got = counted(lambda: distributed.replicated_query(
+        merged, params, f_want.theta))
+    if not (only(got, sketch_query=1) and torch.equal(rq, ops.query_theta(
+            fit_kernel.sketch, params, f_want.theta))):
+        raise AssertionError(f"replicated_query made {got} or differs from "
+                             f"the lone sketch's query")
+    _log(f"[mesh] fleet_fit ({MESH_MEMBERS} members, {steps} steps of k={k}, "
+         f"{cfg.refine_steps} refine pass): 1 and 4 shards equal the "
+         f"meshless fit bit for bit; kernel 2 launches 1 x {per_shard}, "
+         f"4 x {per_shard}; wall {walls['meshless']:.4f} s meshless, "
+         f"{walls[1]:.4f} s on 1 shard, {walls[4]:.4f} s on 4 (shards run "
+         f"one after another in one thread); replicated_query of the 16 "
+         f"final iterates (1 launch) equals the lone sketch's: min "
+         f"{float(rq.min()):.6f}")
+
+    # fleet_fit_banked over phase 7's bank: 16 tenants x 2 restarts.
+    b_theta0, b_sig, b_lr = fleet.seed_fleet_many(
+        TENANTS, MESH_RESTARTS, dim - 2, cfg.dfo,
+        generator=generator(SEED + 20, dev), device=dev)
+
+    def run_banked_fit(mesh):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = distributed.fleet_fit_banked(
+            banks[True], params, b_theta0, cfg.dfo, MESH_RESTARTS, mesh=mesh,
+            sigma=b_sig, learning_rate=b_lr, refine_steps=cfg.refine_steps,
+            generator=generator(SEED + 21, dev))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - start
+
+    run_banked_fit(None)  # warm-up
+    (b_want, b_secs), got = counted(lambda: run_banked_fit(None), path=False)
+    if not only(got, sketch_query_banked=per_shard):
+        raise AssertionError(f"the meshless banked fit made {got}")
+    walls = {"meshless": b_secs}
+    for shards, mesh in meshes("bank").items():
+        (res, secs), got = counted(lambda: run_banked_fit(mesh))
+        walls[shards] = secs
+        if not (torch.equal(res.theta, b_want.theta)
+                and torch.equal(res.losses, b_want.losses)):
+            raise AssertionError(f"fleet_fit_banked over {shards} shard(s) "
+                                 f"differs from the meshless fit")
+        if not only(got, sketch_query_banked=shards * per_shard):
+            raise AssertionError(f"fleet_fit_banked over {shards} shard(s) "
+                                 f"made {got}")
+    _log(f"[mesh] fleet_fit_banked ({TENANTS} tenants x {MESH_RESTARTS} "
+         f"restarts, {TENANTS // 4} tenants a shard on 4): 1 and 4 shards "
+         f"equal the meshless fit bit for bit; kernel 6 launches "
+         f"1 x {per_shard}, 4 x {per_shard}; wall {walls['meshless']:.4f} s "
+         f"meshless, {walls[1]:.4f} s on 1 shard, {walls[4]:.4f} s on 4")
+    del merged, f_want, b_want, res, rq
+
+    # The mesh gateway on phase 13's script, against phase 13's run.
+    def mesh_gateway(mesh):
+        return gw_mod.StormGateway(
+            params, TENANTS, query_slots=GW_QUERY_SLOTS,
+            ingest_slots=GW_INGEST_SLOTS, bank=warm, mesh=mesh)
+
+    ingest_ticks = sum(rep.rows_ingested > 0 for rep in sync_reports)
+    query_ticks = sum(rep.points_served > 0 for rep in sync_reports)
+    fit_queries = gw_launches["sketch_query_banked"] - query_ticks
+    for shards, mesh in meshes("bank").items():
+        gm = mesh_gateway(mesh)
+        (reps, *_), got = counted(lambda: drive(gm, script, guard=guard))
+        if not ([report_key(r) for r in reps] == sync_keys
+                and torch.equal(gm.bank.counts, final)
+                and torch.equal(gm.bank.n, final_n)):
+            raise AssertionError(f"the {shards}-shard gateway differs from "
+                                 f"phase 13's meshless run")
+        if not only(got, paired_hash_histogram_banked=shards * ingest_ticks,
+                    sketch_query_banked=shards * query_ticks + fit_queries):
+            raise AssertionError(f"the {shards}-shard gateway made {got} "
+                                 f"({ingest_ticks} ingest ticks, "
+                                 f"{query_ticks} query ticks)")
+        if gm.trace_count > 3:
+            raise AssertionError(f"mesh tick bodies: {gm._signatures}")
+        gp = mesh_gateway(mesh)
+        reps2, *_ = drive(gp, script, depth=2, guard=guard)
+        if not ([report_key(r) for r in reps2] == sync_keys
+                and torch.equal(gp.bank.counts, final)):
+            raise AssertionError(f"the {shards}-shard gateway at depth 2 "
+                                 f"differs from the sync loop")
+        _log(f"[mesh] gateway over {shards} shard(s) ({TENANTS // shards} "
+             f"tenants each): {len(reps)} reports, {gm.fits_run} fits, "
+             f"counters and n equal phase 13's meshless run, sync and depth "
+             f"2 (tick_start under sync debug mode 'error'); launches "
+             f"{got['paired_hash_histogram_banked']} of kernel 4 = {shards} x "
+             f"{ingest_ticks}, {got['sketch_query_banked']} of kernel 6 = "
+             f"{shards} x {query_ticks} + {fit_queries} in fits; trace_count "
+             f"{gm.trace_count}")
+    del gm, gp
+
+    # The tiered gateway on phase 14's cell over 4 shards.
+    gtm = tiered_mod.TieredStormGateway(
+        params, TIERED_TENANTS, TIERED_HOT, query_slots=GW_QUERY_SLOTS,
+        ingest_slots=GW_INGEST_SLOTS, count_dtype=torch.int16,
+        promote_per_tick=TIERED_PROMOTE_PER_TICK, mesh=meshes("bank")[4])
+    (reps, *_), got = counted(lambda: drive(gtm, z_script, guard=guard))
+    tiered_ingest = sum(rep.rows_ingested > 0 for rep in t_reports)
+    tiered_query = sum(rep.points_served > 0 for rep in t_reports)
+    if [report_key(r) for r in reps] != [report_key(r) for r in t_reports]:
+        raise AssertionError("the 4-shard tiered gateway differs from phase "
+                             "14's meshless run")
+    for t, want in enumerate(tiered_final):
+        sk = gtm.sketch_of(t)
+        if not (torch.equal(sk.counts, want.counts)
+                and int(sk.n) == int(want.n)):
+            raise AssertionError(f"4-shard tiered tenant {t} differs")
+    if not only(got, paired_hash_histogram_banked=4 * tiered_ingest,
+                sketch_query_banked=4 * tiered_query):
+        raise AssertionError(f"the 4-shard tiered gateway made {got}")
+    _log(f"[mesh] tiered gateway over 4 shards (T={TIERED_TENANTS}, "
+         f"H={TIERED_HOT}, int16, Zipf {ZIPF_EXPONENT}): reports and final "
+         f"sketches equal phase 14's meshless run; {gtm.promotions} "
+         f"promotions, {gtm.tiers.swap_count} swaps; trace_count "
+         f"{gtm.trace_count}")
+    del gtm, tiered_final
+
+    # The mesh gateway's speed beside the meshless one's, in turns, on
+    # fit-free traffic.
+    t_script = gateway_script(storm_serve, gw_mod, SEED + 13, GW_ROUNDS,
+                              TENANTS, gw_dim, fits=False)
+    drive(mesh_gateway(meshes("bank")[4]), t_script[:16])  # warm-up
+    for depth in (1, 2):
+        for shards in (0, 1, 4, 4, 1, 0):
+            g = (flat_gateway(bank=warm) if not shards
+                 else mesh_gateway(meshes("bank")[shards]))
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            reps, lat, starts = drive(g, t_script, depth=depth)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            name = f"{shards} shard(s)" if shards else "meshless"
+            _log(f"[time] mesh gateway, {name}, depth {depth}: {len(reps)} "
+                 f"ticks in {secs:.4f} s: {len(reps) / secs:.1f} ticks/s; "
+                 f"tick latency {_pct(lat)}; host time in tick_start "
+                 f"{_pct(starts)}")
+    for shards in MESH_SHARDS:
+        _gateway_profile(torch, mesh_gateway(meshes("bank")[shards]),
+                         t_script, label=f"mesh gateway, {shards} shard(s)",
+                         shards=shards)
+    for name, n in mesh_launches.items():
+        if name in launches:
+            launches[name] += n
+    _log(f"[mesh] launches on the mesh paths: {mesh_launches}; phase 18 "
+         f"took {time.perf_counter() - t18:.1f} s")
+
     # -- 11. timings ------------------------------------------------------------
     # "ms" is device time per launch from torch.profiler (CUPTI); where the
     # profiler records no device activity it is the CUDA-event time per call,
@@ -2498,15 +2766,10 @@ def main() -> int:
         torch.cuda.synchronize()
         secs = time.perf_counter() - start
 
-        def pct(v):
-            ms = [1e3 * x for x in v]
-            return (f"p50 {statistics.median(ms):.4f} ms, p99 "
-                    f"{statistics.quantiles(ms, n=100)[98]:.4f} ms")
-
         _log(f"[time] gateway {label}: {len(reps)} ticks in {secs:.4f} s: "
              f"{len(reps) / secs:.1f} ticks/s, {gtm.points_served / secs:.0f}"
              f" points/s, {gtm.rows_ingested / secs:.0f} rows/s; tick "
-             f"latency {pct(lat)}; host time in tick_start {pct(starts)}; "
+             f"latency {_pct(lat)}; host time in tick_start {_pct(starts)}; "
              f"staging waits {gtm.staging_waits}")
     _gateway_profile(torch, flat_gateway(bank=warm), t_script)
 

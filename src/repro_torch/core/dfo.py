@@ -119,7 +119,7 @@ def minimize_fleet(
             if config.average_tail > 0.0 else 0)
 
     theta = proj(theta0.to(torch.float32))
-    losses, iterates = [], []
+    losses, tail_sum = [], None
     for t in range(config.steps):
         v = directions[t]  # (F, k, dim)
         sv = sig[:, None, None] * v
@@ -139,13 +139,16 @@ def minimize_fleet(
         losses.append(vals[:, -1])
         theta = proj(theta - lr[:, None] * grad)
         if t >= config.steps - tail:
-            iterates.append(theta)
+            # A running sum, elementwise: a member's average then does not
+            # depend on the fleet's size, as a reduction's order may (so a
+            # fleet split over a mesh ends on the same bits).
+            tail_sum = theta if tail_sum is None else tail_sum + theta
         lr = lr * config.decay
         sig = sig * config.sigma_decay
 
     if tail:
         # Polyak averaging over the noisy tail, re-projected onto the constraint.
-        theta = proj(torch.stack(iterates).mean(dim=0))
+        theta = proj(tail_sum / tail)
     return FleetDFOResult(theta=theta, losses=torch.stack(losses, dim=1))
 
 
@@ -172,6 +175,20 @@ def minimize(
 def _quadratic_model_step(delta: Tensor, vals: Tensor, radius: float,
                           ridge: float) -> Tensor:
     """Fit full quadratics to ``(F, m, dim)`` samples; return ``(F, dim)`` steps.
+
+    Each member's model is fitted and solved on its own: the card's batched
+    solvers choose their algorithm by batch size, so a batched solve would
+    make a member's step depend on the fleet's size (a fleet split over a
+    mesh must end on the meshless fleet's bits).
+    """
+    return torch.cat([_member_model_step(delta[i:i + 1], vals[i:i + 1],
+                                         radius, ridge)
+                      for i in range(delta.shape[0])])
+
+
+def _member_model_step(delta: Tensor, vals: Tensor, radius: float,
+                       ridge: float) -> Tensor:
+    """:func:`_quadratic_model_step` of a ``(1, m, dim)`` block.
 
     The quadratic features follow ``torch.triu_indices`` (row-major, the
     order of ``jnp.triu_indices``).

@@ -13,7 +13,10 @@ Residency contract:
   - The device tensors are OWNED BY THE CALLER (the gateway). Every mutating
     method takes the current ``(counts, n)`` pair, updates it IN PLACE (one
     slot read and overwrite) and returns it, so callers written for the
-    reference's functional API work unchanged.
+    reference's functional API work unchanged. A gateway on a mesh passes
+    its per-shard blocks instead (lists of tensors in slot order, each on
+    its shard's device): a swap then reads and writes the shard that holds
+    the slot, and reads of a tenant land on the first block's device.
   - The swap is one body over fixed shapes: ``trace_count`` counts its
     distinct (shape, dtype) signatures and stays at 1 for a bank's life.
   - On the card an evicted table goes device->host with
@@ -34,7 +37,8 @@ had it stayed resident.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, Iterable, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 
@@ -44,6 +48,28 @@ from repro_torch.core.sketch import (
 from repro_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
+Blocks = Union[Tensor, Sequence[Tensor]]
+
+
+def _slot(counts: Blocks, n: Blocks, slot: int) -> Tuple[Tensor, Tensor]:
+    """Views of resident slot ``slot`` in the bank or in its per-shard
+    blocks (equal contiguous blocks in slot order)."""
+    if isinstance(counts, Tensor):
+        return counts[slot], n[slot]
+    shard, i = divmod(slot, counts[0].shape[0])
+    return counts[shard][i], n[shard][i]
+
+
+def _home(counts: Blocks) -> torch.device:
+    """Where reads of a tenant land: the bank's (first block's) device."""
+    return (counts if isinstance(counts, Tensor) else counts[0]).device
+
+
+def _after(event, device: torch.device) -> None:
+    """Order ``device``'s stream behind ``event`` (an eviction's copy, which
+    may have run on another device's stream), without a host wait."""
+    if event is not None:
+        torch.cuda.current_stream(device).wait_event(event)
 
 
 class TenantStats(NamedTuple):
@@ -205,46 +231,52 @@ class TieredBank:
 
     # -- the swap ----------------------------------------------------------
 
-    def _swap(self, counts: Tensor, n: Tensor, slot: int,
-              incoming: Optional[Tuple[Tensor, Tensor]]):
+    def _swap(self, counts: Blocks, n: Blocks, slot: int,
+              incoming: Optional[tuple]):
         """The one promote/demote body: copy slot ``slot`` out to the host,
-        then overwrite it with ``incoming`` (host tensors) or zeros.
+        then overwrite it with ``incoming`` (host tensors and the event
+        behind their eviction, or None) or zeros.
 
         Returns the evicted ``(counts, n, event)``; the copies are
         asynchronous on the card and the event marks their end.
         """
-        self._signatures.add((tuple(counts.shape), counts.dtype))
-        out_c = self._host((self.rows, self.buckets), counts.dtype)
+        c, m = _slot(counts, n, slot)
+        self._signatures.add((tuple(c.shape), c.dtype))
+        out_c = self._host((self.rows, self.buckets), c.dtype)
         out_n = self._host((), torch.int32)
-        out_c.copy_(counts[slot], non_blocking=True)
-        out_n.copy_(n[slot], non_blocking=True)
+        out_c.copy_(c, non_blocking=True)
+        out_n.copy_(m, non_blocking=True)
         if incoming is None:
-            counts[slot].zero_()
-            n[slot].zero_()
+            c.zero_()
+            m.zero_()
         else:
-            counts[slot].copy_(incoming[0], non_blocking=True)
-            n[slot].copy_(incoming[1], non_blocking=True)
+            _after(incoming[2], c.device)
+            c.copy_(incoming[0], non_blocking=True)
+            m.copy_(incoming[1], non_blocking=True)
         event = None
-        if counts.device.type == "cuda":
+        if c.device.type == "cuda":
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(c.device))
         self.swap_count += 1
         return out_c, out_n, event
 
-    def _incoming(self, tenant: int) -> Optional[Tuple[Tensor, Tensor]]:
-        """``tenant``'s host table for an upload, or None (all zero).
+    def _incoming(self, tenant: int) -> Optional[tuple]:
+        """``tenant``'s host table for an upload with the event its upload
+        must follow, or None (all zero).
 
-        A pending eviction is uploaded from its own buffer: the device
-        copy out of the old slot precedes the upload on the stream.
+        A pending eviction is uploaded from its own buffer, behind the event
+        of its copy out of the old slot (on the same stream, or another
+        shard's).
         """
         entry = self._pending.pop(tenant, None)
         if entry is not None:
-            return entry[0], entry[1]
-        return self._cold.pop(tenant, None)
+            return entry[0], entry[1], entry[2]
+        cold = self._cold.pop(tenant, None)
+        return None if cold is None else (*cold, None)
 
-    def promote(self, tenant: int, counts: Tensor, n: Tensor, *, tick: int,
+    def promote(self, tenant: int, counts: Blocks, n: Blocks, *, tick: int,
                 protect: Iterable[int] = ()
-                ) -> Tuple[Tensor, Tensor, Optional[int]]:
+                ) -> Tuple[Blocks, Blocks, Optional[int]]:
         """Swap ``tenant`` into the resident bank, evicting a victim.
 
         Updates ``counts``/``n`` in place without waiting for the device and
@@ -278,8 +310,8 @@ class TieredBank:
         self._cold_rollup_cache = None
         return counts, n, victim
 
-    def demote(self, tenant: int, counts: Tensor, n: Tensor
-               ) -> Tuple[Tensor, Tensor]:
+    def demote(self, tenant: int, counts: Blocks, n: Blocks
+               ) -> Tuple[Blocks, Blocks]:
         """Spill a resident tenant, leaving its slot free and zeroed."""
         slot = self.slot_of.get(tenant)
         if slot is None:
@@ -312,28 +344,33 @@ class TieredBank:
 
     # -- reads -------------------------------------------------------------
 
-    def device_table(self, tenant: int, counts: Tensor, n: Tensor
+    def device_table(self, tenant: int, counts: Blocks, n: Blocks
                      ) -> Tuple[Tensor, Tensor]:
-        """A copy of ``tenant``'s ``(counts, n)`` on the bank's device,
-        wherever the tenant lives, without waiting for the host: a cold
-        table uploads from its host buffer on the stream, behind any
-        eviction still copying into it."""
+        """A copy of ``tenant``'s ``(counts, n)`` on the bank's device (the
+        first block's), wherever the tenant lives, without waiting for the
+        host: a cold table uploads from its host buffer on the stream,
+        behind any eviction still copying into it."""
+        home = _home(counts)
         slot = self.slot_of.get(tenant)
         if slot is not None:
-            return counts[slot].clone(), n[slot].clone()
-        entry = self._pending.get(tenant) or self._cold.get(tenant)
+            c, m = _slot(counts, n, slot)
+            return c.to(home, copy=True), m.to(home, copy=True)
+        pending = self._pending.get(tenant)
+        entry = pending or self._cold.get(tenant)
         if entry is None:
             return (torch.zeros((self.rows, self.buckets), dtype=self.dtype,
-                                device=counts.device),
-                    torch.zeros((), dtype=torch.int32, device=counts.device))
-        return (entry[0].to(counts.device, non_blocking=True),
-                entry[1].to(counts.device, non_blocking=True))
+                                device=home),
+                    torch.zeros((), dtype=torch.int32, device=home))
+        if pending is not None:
+            _after(pending[2], home)
+        return (entry[0].to(home, non_blocking=True),
+                entry[1].to(home, non_blocking=True))
 
-    def sketch_of(self, tenant: int, counts: Tensor, n: Tensor) -> Sketch:
+    def sketch_of(self, tenant: int, counts: Blocks, n: Blocks) -> Sketch:
         """A copy of the tenant's current sketch, wherever it lives."""
         return Sketch(*self.device_table(tenant, counts, n))
 
-    def rollup(self, assignment, counts: Tensor, n: Tensor,
+    def rollup(self, assignment, counts: Blocks, n: Blocks,
                num_groups: Optional[int] = None) -> SketchBank:
         """Cohort roll-up over ALL tenants without faulting a cold table.
 
@@ -356,13 +393,23 @@ class TieredBank:
         # Free slots route to a scratch group past the real ones.
         slot_assign = [groups if t is None else int(assignment[t])
                        for t in self.slot_tenant]
-        hot = SketchBank(counts=counts, n=n).merge_groups(
-            slot_assign, num_groups=groups + 1)
+        home = _home(counts)
+        blocks = ([counts], [n]) if isinstance(counts, Tensor) else (counts, n)
+        wide = torch.zeros((groups, self.rows, self.buckets),
+                           dtype=torch.int32, device=home)
+        total_n = torch.zeros((groups,), dtype=torch.int32, device=home)
+        lo = 0
+        for c, m in zip(*blocks):  # each block folds where it lives
+            hot = SketchBank(counts=c, n=m).merge_groups(
+                slot_assign[lo:lo + c.shape[0]], num_groups=groups + 1)
+            wide += _widen(hot.counts[:groups]).to(home)
+            total_n += hot.n[:groups].to(home)
+            lo += c.shape[0]
         self.flush_evictions()
         cold_c, cold_n = self._cold_rollup(assignment, groups)
-        wide = _widen(hot.counts[:groups]) + cold_c.to(counts.device)
-        return SketchBank(counts=_narrow_back(wide, self.dtype),
-                          n=hot.n[:groups] + cold_n.to(counts.device))
+        return SketchBank(counts=_narrow_back(wide + cold_c.to(home),
+                                              self.dtype),
+                          n=total_n + cold_n.to(home))
 
     def _cold_rollup(self, assignment: Tensor, groups: int
                      ) -> Tuple[Tensor, Tensor]:

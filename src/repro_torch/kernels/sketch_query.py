@@ -10,7 +10,9 @@ The kernel splits the R rows across blocks and adds each block's int64
 partial sums into a per-point workspace; the last block of a point tile
 writes the means and sets its part of the workspace back to zero. The
 workspace (:func:`_workspace`) is kept per device and stream and grown on
-demand, so a call makes one launch and no other CUDA operation.
+demand, so a call makes one launch and no other CUDA operation. Every
+launch runs with the current device set to its tensors' device: the grid's
+SM count is read from the current device.
 
 Tables of f32 (a privatized release, ``core.privacy``) go to the kernel's
 f32 variant, :func:`sketch_query_f32` and :func:`sketch_query_banked_f32`
@@ -159,11 +161,12 @@ def sketch_query(q: Tensor, w: Tensor, counts: Tensor) -> Tensor:
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sums, tickets = _workspace(q.device, stream, m)
-    code = lib.storm_sketch_query(
-        q.data_ptr(), w.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        sums.data_ptr(), tickets.data_ptr(), m, d, p, rows,
-        _COUNT_BYTES[counts.dtype], stream,
-    )
+    with torch.cuda.device(q.device):  # the grid's SM count: this device's
+        code = lib.storm_sketch_query(
+            q.data_ptr(), w.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            sums.data_ptr(), tickets.data_ptr(), m, d, p, rows,
+            _COUNT_BYTES[counts.dtype], stream,
+        )
     _build.check(code, lib, "sketch_query")
     sketch_query.launches += 1
     return out
@@ -202,11 +205,12 @@ def sketch_query_banked(q: Tensor, w: Tensor, counts: Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sums, tickets = _workspace(q.device, stream, m)
-    code = lib.storm_sketch_query_banked(
-        q.data_ptr(), w.data_ptr(), counts.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), sums.data_ptr(), tickets.data_ptr(), m, d, p, rows,
-        _COUNT_BYTES[counts.dtype], stream,
-    )
+    with torch.cuda.device(q.device):
+        code = lib.storm_sketch_query_banked(
+            q.data_ptr(), w.data_ptr(), counts.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), sums.data_ptr(), tickets.data_ptr(), m, d, p,
+            rows, _COUNT_BYTES[counts.dtype], stream,
+        )
     _build.check(code, lib, "sketch_query_banked")
     sketch_query_banked.launches += 1
     return out
@@ -245,17 +249,19 @@ def _launch_f32(q: Tensor, w: Tensor, counts: Tensor, idx) -> Tensor:
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _, tickets = _workspace(q.device, stream, m)
-    partials = _partials(q.device, stream, _partials_needed(
-        q.device.index, m, d, p, rows))
-    if idx is None:
-        code = lib.storm_sketch_query_f32(
-            q.data_ptr(), w.data_ptr(), counts.data_ptr(), out.data_ptr(),
-            partials.data_ptr(), tickets.data_ptr(), m, d, p, rows, stream)
-    else:
-        code = lib.storm_sketch_query_banked_f32(
-            q.data_ptr(), w.data_ptr(), counts.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), partials.data_ptr(), tickets.data_ptr(), m, d, p,
-            rows, stream)
+    with torch.cuda.device(q.device):  # the grid plan reads its SM count
+        partials = _partials(q.device, stream, _partials_needed(
+            q.device.index, m, d, p, rows))
+        if idx is None:
+            code = lib.storm_sketch_query_f32(
+                q.data_ptr(), w.data_ptr(), counts.data_ptr(),
+                out.data_ptr(), partials.data_ptr(), tickets.data_ptr(), m,
+                d, p, rows, stream)
+        else:
+            code = lib.storm_sketch_query_banked_f32(
+                q.data_ptr(), w.data_ptr(), counts.data_ptr(),
+                idx.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                tickets.data_ptr(), m, d, p, rows, stream)
     _build.check(code, lib, "sketch_query_f32" if idx is None
                  else "sketch_query_banked_f32")
     return out

@@ -66,10 +66,11 @@ def srp_hash(x: Tensor, w: Tensor) -> Tensor:
     if not x.shape[0]:
         return out  # nothing to hash: no launch
     lib = _lib()
-    code = lib.storm_srp_hash(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], d, p, rows,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the launch acts on the current device
+        code = lib.storm_srp_hash(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], d, p,
+            rows, torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _build.check(code, lib, "srp_hash")
     srp_hash.launches += 1
     return out

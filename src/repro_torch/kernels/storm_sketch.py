@@ -88,11 +88,14 @@ def _launch(stem: str, x: Tensor, w: Tensor, mask: Tensor, out_dtype,
     ptrs = (x.data_ptr(), w.data_ptr(), mask.data_ptr(), hist.data_ptr(),
             out.data_ptr())
     dims = (x.shape[-2], x.shape[-1], p, rows, _OUT_BYTES[out_dtype])
-    if banked:
-        code = getattr(lib, f"storm_{stem}_banked")(*ptrs, x.shape[0], *dims,
-                                                    stream)
-    else:
-        code = getattr(lib, f"storm_{stem}")(*ptrs, *dims, stream)
+    # The launch, the grid's SM count and the shared-memory opt-in act on
+    # the current device: make it the tensors' device.
+    with torch.cuda.device(x.device):
+        if banked:
+            code = getattr(lib, f"storm_{stem}_banked")(
+                *ptrs, x.shape[0], *dims, stream)
+        else:
+            code = getattr(lib, f"storm_{stem}")(*ptrs, *dims, stream)
     _build.check(code, lib, stem + ("_banked" if banked else ""))
     return out
 

@@ -1,5 +1,5 @@
 """STORM serving gateway: one fused banked insert and one fused banked query
-per tick (port of ``repro.serve.storm_gateway``, meshless).
+per tick (port of ``repro.serve.storm_gateway``).
 
 The serving unit is a :class:`~repro_torch.core.sketch.SketchBank`: S
 tenants' counter tables behind one endpoint under one hash family. The
@@ -61,14 +61,28 @@ Private fits plan their reads in ``tick_start`` and build the released
 sub-bank on the device behind the tick. ``None`` or a noiseless policy
 builds none of this: the gateway is the non-private one.
 
+**Mesh.** With ``mesh=`` (a :class:`~repro_torch.sharding.mesh.Mesh`
+whose axis is ``axis``) the tenants split over the mesh in
+``sharding.specs.tenant_placement``'s contiguous blocks, as the reference's
+``gateway_specs`` splits them. Each shard owns, on its device, its block of
+the bank, of the fused transfer and of the staging ring, and runs the
+tick's bodies over its block (on the card one banked insert and one banked
+query per shard per tick; every shard has the same shapes, so
+``trace_count`` stays <= 3). Shards never talk to each other during a tick:
+``tick_start`` packs every shard's buffer, ships each in one asynchronous
+copy and launches its body, and :meth:`~StormGateway.tick_finish` waits
+for each shard's event behind its estimates' readback. Fits gather their
+cohort's tables from the shards that hold them onto the gateway's device
+(the mesh's first). Finite-epsilon privacy is meshless-only, as in the
+reference. Without a mesh the gateway is one shard holding every tenant.
+
 Correctness contract: a tenant's counters after any interleaving of ticks
 equal the lone ``sketch_dataset`` build of its stream bit for bit; query
 results equal standalone ``ops.query_theta_with_weights`` calls against the
 tenant's lone sketch (under privacy: against its release); a gateway fit
 equals the offline ``erm.fit_many`` over the same counters (or released
-tables) and seed.
-
-Not ported yet: the tenant mesh.
+tables) and seed; a gateway on a mesh serves what the meshless one serves,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -86,6 +100,8 @@ from repro_torch.core import sketch as sketch_lib
 from repro_torch.device import DeviceLike, generator as make_generator
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.sharding import specs as sharding_specs
+from repro_torch.sharding.mesh import Mesh, home_device
 
 Tensor = torch.Tensor
 
@@ -242,8 +258,9 @@ class InflightTick:
 
     Everything queue-related was resolved at :meth:`StormGateway.tick_start`;
     ``est`` holds the query estimates: on the card a pinned host tensor that
-    an asynchronous copy fills, complete once the event ``ready`` has
-    passed (on the CPU the estimates themselves, ``ready`` None), and
+    asynchronous copies fill, complete once every event of ``ready`` (one
+    per shard) has passed (on the CPU the estimates themselves, ``ready``
+    None), and
     ``placements``/``completes``/``ingest_done`` are the host bookkeeping
     that turns the readback into :class:`TickReport` entries; ``fits`` holds
     each fit request with its cohort's counters (int32, or released f32
@@ -259,7 +276,7 @@ class InflightTick:
     rows: int
     points: int
     fits: list = dataclasses.field(default_factory=list)  # (req, bank, status)
-    ready: Optional[torch.cuda.Event] = None
+    ready: Optional[List[torch.cuda.Event]] = None
 
 
 def run_fit_request(req: FitRequest, bank: sketch_lib.SketchBank,
@@ -295,6 +312,7 @@ class _StagingRing:
     """
 
     def __init__(self, size: int, device: torch.device):
+        self._device = device
         self._pinned = device.type == "cuda"
         self._bufs = [torch.zeros(size, dtype=torch.float32,
                                   pin_memory=self._pinned)
@@ -317,11 +335,36 @@ class _StagingRing:
         return self._bufs[k]
 
     def copied(self, k: int) -> None:
-        """Mark the end of buffer ``k``'s copy on the current stream."""
+        """Mark the end of buffer ``k``'s copy on the device's stream."""
         if self._pinned:
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(self._device))
             self._events[k] = event
+
+
+class _Shard:
+    """One shard of a gateway: a contiguous block of ``tenants`` tenants
+    from ``lo`` on one device, with its block of the bank (``counts``,
+    ``n``: owned, updated in place), its weights, its block of the fused
+    transfer (``flat`` and the views the tick bodies read), its staging
+    ring and its query routing. A meshless gateway is one shard."""
+
+    def __init__(self, gw: "StormGateway", lo: int, tenants: int,
+                 device: torch.device, counts: Tensor, n: Tensor):
+        self.lo, self.tenants, self.device = lo, tenants, device
+        self.counts = counts.to(device, copy=True)
+        self.n = n.to(device, torch.int32, copy=True)
+        self.w = gw.w.to(device)
+        self.flat = torch.zeros(gw._end, dtype=torch.float32, device=device)
+        self.zbuf, self.zmask, self.qbuf, self.qmask = gw._views(self.flat)
+        self.staging = _StagingRing(gw._end, device)
+        # Tenant-major query slots: row i reads table i // Q (member-major
+        # routing with member_map = arange(tenants)): in range by
+        # construction, so the banked query takes it as checked and reads
+        # nothing back.
+        self.qidx = fleet.member_point_idx(
+            torch.arange(tenants, dtype=torch.int32, device=device),
+            tenants * gw.query_slots)
 
 
 class StormGateway:
@@ -344,6 +387,8 @@ class StormGateway:
         privacy_seed: int = 0,
         private_view: Optional[privacy_lib.PrivateBankView] = None,
         privacy_key_of: Optional[Callable[[int], int]] = None,
+        mesh: Optional[Mesh] = None,
+        axis: str = "bank",
         device: DeviceLike = None,
     ):
         """Args:
@@ -372,15 +417,34 @@ class StormGateway:
           privacy_key_of: maps a bank slot to its ledger key (identity by
             default; the tiered gateway maps slot -> GLOBAL tenant, so
             budgets follow tenants across promote/demote).
-          device: where the bank and the tick bodies live (``None``: the
-            card, raising without one).
+          mesh / axis: optional device mesh splitting the tenants over its
+            axis ``axis`` (the module note); ``tenants`` must be a multiple
+            of the shard count.
+          device: where the bank and the tick bodies live, or on a mesh
+            where fits run and gathered reads land (default: the mesh's
+            first device); ``None`` without a mesh: the card, raising
+            without one.
         """
         if tenants < 1:
             raise ValueError(f"need at least one tenant; got {tenants}")
         if mode not in ops.MODES:
             raise ValueError(f"unknown mode {mode!r}; use auto | kernel | ref")
-        dev = resolve_device(device)
+        if (mesh is not None and privacy is not None
+                and not privacy.noiseless):
+            raise NotImplementedError(
+                "finite-epsilon privacy is meshless-only for now; "
+                "eps=inf (ReleasePolicy.unlimited() or privacy=None) "
+                "runs on a mesh unchanged")
+        dev = home_device(mesh, device)
         self.device = dev
+        self.mesh = mesh
+        # Tenant t lives on shard placement[t], at local slot t - lo.
+        placement = (np.zeros((tenants,), np.int32) if mesh is None
+                     else sharding_specs.tenant_placement(tenants, mesh, axis))
+        devices = (dev,) if mesh is None else mesh.devices
+        self._local = tenants // len(devices)
+        self._place = [(int(sh), t - int(sh) * self._local)
+                       for t, sh in enumerate(placement)]
         self.params = lsh.LSHParams(projections=params.projections.to(dev))
         self.w = ops.from_lsh_params(self.params)
         self.dim = self.params.dim - 2  # query iterate dim (theta_tilde rows)
@@ -405,10 +469,7 @@ class StormGateway:
                 f"bank holds {bank.counts.shape[0]} sketches for "
                 f"{tenants} tenants"
             )
-        # The gateway owns its bank and updates it in place.
-        self._counts = bank.counts.to(dev).clone()
-        self._n = bank.n.to(dev, torch.int32).clone()
-        self.count_dtype = self._counts.dtype
+        self.count_dtype = bank.counts.dtype
         self._ingest_q: Deque[_PendingIngest] = deque()
         self._query_q: Deque[_PendingQuery] = deque()
         self._fit_q: Deque[FitRequest] = deque()
@@ -440,14 +501,16 @@ class StormGateway:
             # n: the host packs every row) keyed by ledger key, seeded from
             # a warm bank.
             self._rows_of: Dict[int, int] = defaultdict(int)
-            for slot, n0 in enumerate(self._n.cpu().tolist()):
+            for slot, n0 in enumerate(bank.n.cpu().tolist()):
                 if n0:
                     self._rows_of[self._privacy_key_of(slot)] += int(n0)
 
-        # The fused transfer's layout [zbuf | zmask | qbuf | qmask], and
-        # under privacy [... | noise | fresh | n_used (int32 bits)], its
-        # device buffer and the views the tick bodies read.
-        s, i_cap, q_cap = tenants, ingest_slots, query_slots
+        # A shard's block of the fused transfer: [zbuf | zmask | qbuf |
+        # qmask], and under privacy (meshless: one shard) [... | noise |
+        # fresh | n_used (int32 bits)]; each shard owns its device buffer,
+        # the views its tick bodies read, and its part of the bank, which
+        # the gateway updates in place.
+        s, i_cap, q_cap = self._local, ingest_slots, query_slots
         self._z_end = s * i_cap * self.ingest_dim
         self._zm_end = self._z_end + s * i_cap
         self._q_end = self._zm_end + s * q_cap * self.dim
@@ -458,22 +521,21 @@ class StormGateway:
                 self.params.buckets
             self._fr_end = self._nz_end + s
             self._end = self._fr_end + s
-        self._flat = torch.zeros(self._end, dtype=torch.float32, device=dev)
-        self._zbuf, self._zmask, self._qbuf, self._qmask = self._views(
-            self._flat)
+        if mesh is None:
+            blocks = zip([bank.counts], [bank.n])
+        else:
+            bank_spec, _ = sharding_specs.gateway_specs(axis)
+            blocks = zip(sharding_specs.place(bank.counts, bank_spec, mesh),
+                         sharding_specs.place(bank.n, bank_spec, mesh))
+        self._shards = [_Shard(self, i * self._local, self._local, d, c, n)
+                        for i, (d, (c, n)) in enumerate(zip(devices, blocks))]
         if self._private:
             self._noise, self._fresh, self._n_used = self._release_views(
-                self._flat)
-        self._staging = _StagingRing(self._end, dev)
-        # Tenant-major query slots: row i reads table i // Q (member-major
-        # routing with member_map = arange(S)): in [0, S) by construction,
-        # so the banked query takes it as checked and reads nothing back.
-        self._qidx = fleet.member_point_idx(
-            torch.arange(s, dtype=torch.int32, device=dev), s * q_cap)
+                self._shards[0].flat)
 
     def _views(self, flat: Tensor):
-        """``(zbuf, zmask, qbuf, qmask)`` views of a fused buffer."""
-        s, i_cap, q_cap = self.tenants, self.ingest_slots, self.query_slots
+        """``(zbuf, zmask, qbuf, qmask)`` views of a shard's fused buffer."""
+        s, i_cap, q_cap = self._local, self.ingest_slots, self.query_slots
         return (flat[:self._z_end].view(s, i_cap, self.ingest_dim),
                 flat[self._z_end:self._zm_end].view(s, i_cap),
                 flat[self._zm_end:self._q_end].view(s * q_cap, self.dim),
@@ -592,13 +654,34 @@ class StormGateway:
 
     @property
     def bank(self) -> sketch_lib.SketchBank:
-        """The live counter bank: the gateway's own tensors, which later
-        ticks update in place (clone to keep a snapshot)."""
-        return sketch_lib.SketchBank(counts=self._counts, n=self._n)
+        """The counter bank. Meshless: the live bank, the gateway's own
+        tensors, which later ticks update in place (clone to keep a
+        snapshot); on a mesh: the shards' blocks gathered onto the
+        gateway's device (a copy)."""
+        if self.mesh is None:
+            sh = self._shards[0]
+            return sketch_lib.SketchBank(counts=sh.counts, n=sh.n)
+        counts, n = self.bank_blocks()
+        return sketch_lib.SketchBank(
+            counts=torch.cat([c.to(self.device) for c in counts]),
+            n=torch.cat([m.to(self.device) for m in n]))
+
+    def bank_blocks(self) -> tuple:
+        """The live per-shard blocks ``([counts], [n])`` in tenant order,
+        each on its shard's device."""
+        return ([sh.counts for sh in self._shards],
+                [sh.n for sh in self._shards])
+
+    def _table(self, tenant: int) -> tuple:
+        """Live views ``(counts, n)`` of a tenant's table on its shard."""
+        shard, i = self._place[tenant]
+        sh = self._shards[shard]
+        return sh.counts[i], sh.n[i]
 
     def sketch_of(self, tenant: int) -> sketch_lib.Sketch:
-        """Tenant ``tenant``'s sketch as a standalone view."""
-        return self.bank.select(tenant)
+        """Tenant ``tenant``'s sketch as a standalone view (on its shard's
+        device)."""
+        return sketch_lib.Sketch(*self._table(tenant))
 
     @property
     def trace_count(self) -> int:
@@ -610,12 +693,13 @@ class StormGateway:
     @property
     def staging_waits(self) -> int:
         """Times ``tick_start`` waited for a staging buffer's last copy."""
-        return self._staging.waits
+        return sum(sh.staging.waits for sh in self._shards)
 
     # -- the tick bodies ------------------------------------------------------
 
-    def _ingest_half(self) -> None:
-        """ONE banked insert over the ``(S, I, dim)`` stack, added in place.
+    def _ingest_half(self, sh: _Shard) -> None:
+        """ONE banked insert over a shard's ``(S, I, dim)`` stack, added in
+        place.
 
         Narrow banks take the insert's narrow tile (int32 inside the
         kernel, one saturating cast) and add it saturating; increments are
@@ -624,20 +708,21 @@ class StormGateway:
         """
         insert = (ops.paired_hash_histogram_banked if self.paired
                   else ops.hash_histogram_banked)
-        tile = insert(self._zbuf, self.w, self._zmask, mode=self.mode,
+        tile = insert(sh.zbuf, sh.w, sh.zmask, mode=self.mode,
                       out_dtype=self.count_dtype)
-        self._counts.copy_(sketch_lib.saturating_add(self._counts, tile))
-        self._n += self._zmask.sum(dim=1).to(torch.int32)
+        sh.counts.copy_(sketch_lib.saturating_add(sh.counts, tile))
+        sh.n += sh.zmask.sum(dim=1).to(torch.int32)
 
-    def _query_half(self) -> Tensor:
-        """ONE banked query over the ``(S*Q, dim)`` slots; masked slots
-        return 0.0."""
+    def _query_half(self, sh: _Shard) -> Tensor:
+        """ONE banked query over a shard's ``(S*Q, dim)`` slots; masked
+        slots return 0.0."""
         est = ops.query_theta_with_weights(
-            self.bank, self.w, self._qbuf, paired=self.paired,
-            mode=self.mode, sketch_idx=self._qidx, index_checked=True)
-        return torch.where(self._qmask > 0, est, 0.0)
+            sketch_lib.SketchBank(counts=sh.counts, n=sh.n), sh.w, sh.qbuf,
+            paired=self.paired, mode=self.mode, sketch_idx=sh.qidx,
+            index_checked=True)
+        return torch.where(sh.qmask > 0, est, 0.0)
 
-    def _private_query(self) -> Tensor:
+    def _private_query(self, sh: _Shard) -> Tensor:
         """The private query body: this tick's releases into the lanes, then
         ONE banked query over the lanes with the release-time counts.
 
@@ -646,40 +731,44 @@ class StormGateway:
         return 0.0.
         """
         released = torch.where(self._fresh[:, None, None] > 0,
-                               self._counts.to(torch.float32) + self._noise,
+                               sh.counts.to(torch.float32) + self._noise,
                                self._release)
         self._release.copy_(released)
         est = ops.query_theta_with_weights(
             sketch_lib.SketchBank(counts=self._release, n=self._n_used),
-            self.w, self._qbuf, paired=self.paired, mode=self.mode,
-            sketch_idx=self._qidx, index_checked=True)
-        return torch.where(self._qmask > 0, est, 0.0)
+            sh.w, sh.qbuf, paired=self.paired, mode=self.mode,
+            sketch_idx=sh.qidx, index_checked=True)
+        return torch.where(sh.qmask > 0, est, 0.0)
 
-    def _run_body(self, ingest: bool, query: bool) -> Optional[Tensor]:
-        """Run the tick's bodies: one of the three (full, ingest-only,
+    def _run_body(self, sh: _Shard, ingest: bool, query: bool
+                  ) -> Optional[Tensor]:
+        """Run a shard's tick bodies: one of the three (full, ingest-only,
         query-only), or under privacy the ingest body and then the private
         query body, each where the tick has its traffic."""
         shapes = tuple(tuple(t.shape) for t in (
-            self._counts, self._n, self._zbuf, self._qbuf))
+            sh.counts, sh.n, sh.zbuf, sh.qbuf))
         if self._private:
             est = None
             if ingest:
                 self._signatures.add(("ingest", shapes, self.count_dtype))
-                self._ingest_half()
+                self._ingest_half(sh)
             if query:
                 self._signatures.add(("private", shapes, self.count_dtype))
-                est = self._private_query()
+                est = self._private_query(sh)
             return est
         name = {(True, True): "full", (True, False): "ingest",
                 (False, True): "query"}[(ingest, query)]
         self._signatures.add((name, shapes, self.count_dtype))
         if ingest:
-            self._ingest_half()
-        return self._query_half() if query else None
+            self._ingest_half(sh)
+        return self._query_half(sh) if query else None
 
     # -- packing --------------------------------------------------------------
 
-    def _pack_ingest(self, zbuf: np.ndarray, zmask: np.ndarray):
+    def _pack_ingest(self, zbufs: List[np.ndarray],
+                     zmasks: List[np.ndarray]):
+        """Pack queued rows into the shards' ingest views (per shard
+        ``(S_local, I, dim)`` and ``(S_local, I)``)."""
         i_cap = self.ingest_slots
         fill = [0] * self.tenants
         taken = 0
@@ -689,9 +778,10 @@ class StormGateway:
             take = min(i_cap - fill[t], st.req.z.shape[0] - st.cursor)
             if take <= 0:
                 continue
-            zbuf[t, fill[t]:fill[t] + take] = st.req.z[
+            shard, i = self._place[t]
+            zbufs[shard][i, fill[t]:fill[t] + take] = st.req.z[
                 st.cursor:st.cursor + take]
-            zmask[t, fill[t]:fill[t] + take] = 1.0
+            zmasks[shard][i, fill[t]:fill[t] + take] = 1.0
             st.cursor += take
             fill[t] += take
             taken += take
@@ -706,7 +796,10 @@ class StormGateway:
         self._ingest_q = remaining
         return taken, done
 
-    def _pack_queries(self, qbuf: np.ndarray, qmask: np.ndarray):
+    def _pack_queries(self, qbufs: List[np.ndarray],
+                      qmasks: List[np.ndarray]):
+        """Pack queued points into the shards' query views (per shard
+        ``(S_local, Q, dim)`` and ``(S_local, Q)``)."""
         q_cap = self.query_slots
         fill = [0] * self.tenants
         placements = []  # (pending, req_offset, tenant, slot_offset, count)
@@ -715,9 +808,10 @@ class StormGateway:
             take = min(q_cap - fill[t], st.req.thetas.shape[0] - st.cursor)
             if take <= 0:
                 continue
-            qbuf[t, fill[t]:fill[t] + take] = st.req.thetas[
+            shard, i = self._place[t]
+            qbufs[shard][i, fill[t]:fill[t] + take] = st.req.thetas[
                 st.cursor:st.cursor + take]
-            qmask[t, fill[t]:fill[t] + take] = 1.0
+            qmasks[shard][i, fill[t]:fill[t] + take] = 1.0
             placements.append((st, st.cursor, t, fill[t], take))
             st.cursor += take
             fill[t] += take
@@ -749,21 +843,23 @@ class StormGateway:
             return InflightTick(tick=self.ticks, est=None, placements=[],
                                 completes=[], ingest_done=[], rows=0,
                                 points=0, fits=self._gather_fits())
-        k = self._staging.acquire()
-        host = self._staging.buffer(k)
-        s = self.tenants
-        zbuf, zmask, qbuf, qmask = (v.numpy() for v in self._views(host))
+        shards = self._shards
+        slots = [sh.staging.acquire() for sh in shards]
+        hosts = [sh.staging.buffer(k) for sh, k in zip(shards, slots)]
+        views = [[v.numpy() for v in self._views(host)] for host in hosts]
         rows, ingest_done = 0, []
         if self._ingest_q:
-            host[:self._zm_end].zero_()
-            rows, ingest_done = self._pack_ingest(zbuf, zmask)
+            for host in hosts:
+                host[:self._zm_end].zero_()
+            rows, ingest_done = self._pack_ingest([v[0] for v in views],
+                                                  [v[1] for v in views])
         plans: Dict[int, privacy_lib.ReadPlan] = {}
         refused: List[_PendingQuery] = []
         if self._private:
             # The packed rows are this tick's inserts: versions advance as
-            # the device n does.
+            # the device n does (one shard: the mesh is meshless here).
             if rows:
-                per_slot = zmask.sum(axis=1)
+                per_slot = views[0][1].sum(axis=1)
                 for slot in np.nonzero(per_slot)[0]:
                     self._rows_of[self._privacy_key_of(int(slot))] += int(
                         per_slot[slot])
@@ -773,10 +869,12 @@ class StormGateway:
                  if plan.status == "refuse"})
         placements, completes = [], []
         if self._query_q:
-            host[self._zm_end:self._qm_end].zero_()
+            for host in hosts:
+                host[self._zm_end:self._qm_end].zero_()
+            local, q_cap = self._local, self.query_slots
             placements, completes = self._pack_queries(
-                qbuf.reshape(s, self.query_slots, self.dim),
-                qmask.reshape(s, self.query_slots))
+                [v[2].reshape(local, q_cap, self.dim) for v in views],
+                [v[3].reshape(local, q_cap) for v in views])
         completes = refused + completes
         for st, _, t, _, _ in placements:
             if t in plans and plans[t].status == "stale":
@@ -789,29 +887,44 @@ class StormGateway:
             if do_query:
                 hi = self._qm_end
                 if self._private:
-                    self._pack_releases(host, plans)
+                    self._pack_releases(hosts[0], plans)
                     hi = self._end
-            self._flat[lo:hi].copy_(host[lo:hi], non_blocking=True)
-            self._staging.copied(k)
-            est = self._run_body(do_ingest, do_query)
+            ests = []
+            for sh, k, host in zip(shards, slots, hosts):
+                sh.flat[lo:hi].copy_(host[lo:hi], non_blocking=True)
+                sh.staging.copied(k)
+                ests.append(self._run_body(sh, do_ingest, do_query))
             if self._private and do_query:
                 for slot, plan in plans.items():
                     if plan.status == "fresh":
                         self.private_view.mark_resident(
                             self._privacy_key_of(slot))
-        if est is not None and est.is_cuda:
-            # Queue the readback now: waiting on its event waits for this
-            # tick's work only, not for ticks launched after it.
-            est_host = torch.empty(est.shape, dtype=est.dtype,
-                                   pin_memory=True)
-            est_host.copy_(est, non_blocking=True)
-            est, ready = est_host, torch.cuda.Event()
-            ready.record()
+            if do_query:
+                est, ready = self._read_estimates(ests)
         points = sum(take for *_, take in placements)
         return InflightTick(tick=self.ticks, est=est, placements=placements,
                             completes=completes, ingest_done=ingest_done,
                             rows=rows, points=points,
                             fits=self._gather_fits(), ready=ready)
+
+    def _read_estimates(self, ests: List[Tensor]) -> tuple:
+        """The shards' estimates in tenant order, and the events behind
+        their readback (None on the CPU). On the card each shard's readback
+        is queued now into its slice of one pinned buffer: waiting on its
+        event waits for that shard's work of this tick only, not for ticks
+        launched after it."""
+        if not ests[0].is_cuda:
+            return (ests[0] if len(ests) == 1 else torch.cat(ests)), None
+        est_host = torch.empty((self.tenants * self.query_slots,),
+                               dtype=ests[0].dtype, pin_memory=True)
+        ready = []
+        for sh, e in zip(self._shards, ests):
+            lo = sh.lo * self.query_slots
+            est_host[lo:lo + e.shape[0]].copy_(e, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(sh.device))
+            ready.append(event)
+        return est_host, ready
 
     # -- privatize-on-read planning (finite policy only) --------------------
 
@@ -876,13 +989,14 @@ class StormGateway:
             if self._private:
                 out.append(self._gather_private(
                     req, [self._privacy_key_of(t) for t in req.tenants],
-                    lambda j, req=req: self._counts[req.tenants[j]],
+                    lambda j, req=req: self._table(req.tenants[j])[0],
                     lambda j, req=req: self._release[req.tenants[j]]))
                 continue
+            tables = [self._table(t) for t in req.tenants]
             out.append((req, sketch_lib.SketchBank(
-                counts=torch.stack([self._counts[t] for t in req.tenants]
+                counts=torch.stack([c.to(self.device) for c, _ in tables]
                                    ).to(torch.int32),
-                n=torch.stack([self._n[t] for t in req.tenants])), "ok"))
+                n=torch.stack([m.to(self.device) for _, m in tables])), "ok"))
         return out
 
     def _gather_private(self, req: FitRequest, keys: List[int],
@@ -945,14 +1059,15 @@ class StormGateway:
     def tick_finish(self, inflight: InflightTick) -> TickReport:
         """Read back one launched tick's estimates and report completions.
 
-        Waiting for the estimates here is the ONLY device->host sync of the
-        serving loop, and it waits for this tick's work alone. Finish ticks
+        Waiting for the estimates here (each shard's event) is the ONLY
+        device->host sync of the serving loop, and it waits for this tick's
+        work alone. Finish ticks
         in dispatch order. The tick's fits run here, over the counters
         gathered behind its ingest.
         """
         results: List[QueryResult] = []
-        if inflight.ready is not None:
-            inflight.ready.synchronize()
+        for event in inflight.ready or ():
+            event.synchronize()
         if inflight.est is not None:
             losses_ = inflight.est.numpy().reshape(self.tenants,
                                                    self.query_slots)

@@ -1,5 +1,5 @@
 """Tiered serving gateway: hot/cold tenant store around the fused tick (port
-of ``repro.serve.tiered_gateway``, meshless).
+of ``repro.serve.tiered_gateway``).
 
 :class:`TieredStormGateway` serves ``num_tenants`` GLOBAL tenants through a
 :class:`~repro_torch.serve.storm_gateway.StormGateway` whose bank holds only
@@ -34,7 +34,9 @@ demoted tenant's stale lane is dropped, and a private fit reads a cold
 tenant's exact host copy plus noise. With ``hot_capacity >= num_tenants``
 no swap ever runs and every tick equals the flat gateway's; with
 evictions, a tenant's sketch after any promote/demote history equals its
-always-resident counterpart bit for bit.
+always-resident counterpart bit for bit. With ``mesh=`` the resident slots
+split over the mesh as the inner gateway's tenants do, and a promotion or
+demotion reads and writes the shard that holds its slot.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ from repro_torch.core import losses, lsh
 from repro_torch.core import privacy as privacy_lib
 from repro_torch.core import sketch as sketch_lib
 from repro_torch.core.tiered import TieredBank
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
+from repro_torch.sharding.mesh import Mesh, home_device
 from repro_torch.serve.storm_gateway import (
     Backpressure,
     FitRequest,
@@ -78,6 +81,8 @@ class TieredStormGateway:
         ingest_slots: int = 128,
         count_dtype=torch.int16,
         mode: str = "auto",
+        mesh: Optional[Mesh] = None,
+        axis: str = "bank",
         max_pending_rows: Optional[int] = None,
         max_pending_points: Optional[int] = None,
         promote_per_tick: int = 2,
@@ -99,10 +104,13 @@ class TieredStormGateway:
           privacy: optional :class:`~repro_torch.core.privacy.ReleasePolicy`;
             the budget is per GLOBAL tenant (one shared view).
           privacy_seed: seed of the release noise stream.
+          mesh / axis: optional device mesh splitting the resident slots
+            (the inner gateway's tenants) over ``axis``; ``hot_capacity``
+            must be a multiple of the shard count.
         """
         if num_tenants < 1:
             raise ValueError(f"need at least one tenant; got {num_tenants}")
-        dev = resolve_device(device)
+        dev = home_device(mesh, device)
         self.num_tenants = num_tenants
         self.tiers = TieredBank(
             num_tenants=num_tenants, hot_capacity=hot_capacity,
@@ -123,7 +131,7 @@ class TieredStormGateway:
             max_pending_rows=None, max_pending_points=None,
             privacy=privacy, privacy_seed=privacy_seed,
             private_view=self.private_view, privacy_key_of=self._slot_key,
-            device=dev,
+            mesh=mesh, axis=axis, device=dev,
         )
         self.max_pending_rows = max_pending_rows
         self.max_pending_points = max_pending_points
@@ -290,8 +298,7 @@ class TieredStormGateway:
                 self.deferred_promotions += 1
                 continue
             _, _, victim = self.tiers.promote(
-                tenant, self.gw._counts, self.gw._n, tick=tick,
-                protect=protect)
+                tenant, *self.gw.bank_blocks(), tick=tick, protect=protect)
             self.promotions += 1
             if victim is not None:
                 self.demotions += 1
@@ -342,17 +349,18 @@ class TieredStormGateway:
         implies residency: lanes drop on demotion)."""
         out = []
         gw = self.gw
+        blocks = gw.bank_blocks()
         while self._fit_q:
             req = self._fit_q.popleft()
             table = lambda j, req=req: self.tiers.device_table(  # noqa: E731
-                req.tenants[j], gw._counts, gw._n)[0]
+                req.tenants[j], *blocks)[0]
             if self._private:
                 out.append(gw._gather_private(
                     req, list(req.tenants), table,
                     lambda j, req=req: gw._release[
                         self.tiers.slot_of[req.tenants[j]]]))
                 continue
-            tables = [self.tiers.device_table(t, gw._counts, gw._n)
+            tables = [self.tiers.device_table(t, *blocks)
                       for t in req.tenants]
             out.append((req, sketch_lib.SketchBank(
                 counts=torch.stack([c for c, _ in tables]).to(torch.int32),
@@ -390,17 +398,18 @@ class TieredStormGateway:
 
     def sketch_of(self, tenant: int) -> sketch_lib.Sketch:
         """Tenant's sketch wherever it lives (host copy when cold)."""
-        return self.tiers.sketch_of(tenant, self.gw._counts, self.gw._n)
+        return self.tiers.sketch_of(tenant, *self.gw.bank_blocks())
 
     @property
     def resident_bank(self) -> sketch_lib.SketchBank:
-        """The device-resident hot bank (slot-major, NOT tenant-major)."""
+        """The device-resident hot bank (slot-major, NOT tenant-major; on a
+        mesh a gathered copy, as ``StormGateway.bank``)."""
         return self.gw.bank
 
     def rollup(self, assignment, num_groups: Optional[int] = None
                ) -> sketch_lib.SketchBank:
         """Cohort roll-up over ALL tenants without promoting anyone."""
-        return self.tiers.rollup(assignment, self.gw._counts, self.gw._n,
+        return self.tiers.rollup(assignment, *self.gw.bank_blocks(),
                                  num_groups=num_groups)
 
     def queue_stats(self) -> dict:

@@ -1,0 +1,143 @@
+"""One-axis device meshes and the shard arithmetic over them (the port's
+counterpart of ``jax.sharding.Mesh``, ``repro.compat.shard_map`` and
+``repro.launch.mesh.make_debug_mesh``).
+
+Every mesh path of the reference is single-controller: one Python process
+drives all of a host's devices through ``shard_map``, and reads every
+shard's result itself. The port keeps that design. A :class:`Mesh` is a
+tuple of ``torch.device`` under one axis name; :func:`split` cuts a leading
+axis into contiguous equal blocks, one per shard (the ``P(axis)`` layout),
+each moved to its shard's device; :func:`shard_map` runs a body once per
+shard, in shard order, in the calling thread; :func:`psum` is the merge, an
+exact int32 sum of the shards' parts on the mesh's first device, and
+:func:`gather` concatenates per-shard outputs there (``out_specs=P(axis)``).
+There are no process groups.
+
+A device may repeat: ``Mesh(("cuda:0",) * 4)`` puts four shards on one
+card, the counterpart of the reference's forced host devices
+(``--xla_force_host_platform_device_count``): every shard's arithmetic and
+launches run, on one card. CPU meshes are built only from devices the
+caller names ``"cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+
+
+class Mesh:
+    """One named axis over a tuple of devices (repeats allowed)."""
+
+    def __init__(self, devices: Sequence[DeviceLike], axis: str = "data"):
+        devs = []
+        for d in devices:
+            if d is None:
+                raise ValueError("name every device of a mesh")
+            dev = resolve_device(d)
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            devs.append(dev)
+        if not devs:
+            raise ValueError("a mesh needs at least one device")
+        if len({d.type for d in devs}) > 1:
+            raise ValueError(f"a mesh's devices must be all cuda or all cpu; "
+                             f"got {[str(d) for d in devs]}")
+        self.devices = tuple(devs)
+        self.axis = axis
+
+    @property
+    def size(self) -> int:
+        """The number of shards."""
+        return len(self.devices)
+
+    @property
+    def shape(self) -> dict:
+        """``{axis: size}``, as ``jax.sharding.Mesh.shape`` reads."""
+        return {self.axis: self.size}
+
+    @property
+    def first(self) -> torch.device:
+        """Where merged and gathered results live."""
+        return self.devices[0]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({[str(d) for d in self.devices]}, "
+                f"axis={self.axis!r})")
+
+
+def make_debug_mesh(devices: Optional[Sequence[DeviceLike]] = None,
+                    axis: str = "data") -> Mesh:
+    """Every visible card as one ``axis`` (raises without a card), or the
+    ``devices`` named."""
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if not count:
+            raise RuntimeError("no CUDA device is available; name the mesh's "
+                               "devices (e.g. ['cpu'] * 2) to run on the CPU")
+        devices = [torch.device("cuda", i) for i in range(count)]
+    return Mesh(devices, axis)
+
+
+def home_device(mesh: Optional[Mesh], device: DeviceLike) -> torch.device:
+    """Where a mesh-aware entry point reads, merges and returns: ``device``
+    resolved (``None``: the card), or with a mesh its first device, which
+    ``device``, if given, must name."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and Mesh([device]).first != mesh.first:
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{mesh.first}")
+    return mesh.first
+
+
+def block_size(n: int, mesh: Mesh, what: str = "leading axis") -> int:
+    """Rows per shard of an ``n``-long leading axis; raises unless the mesh
+    divides it."""
+    if n % mesh.size:
+        raise ValueError(f"{what} of size {n} not divisible by mesh axis "
+                         f"{mesh.axis!r} ({mesh.size} shards)")
+    return n // mesh.size
+
+
+def split(x: Tensor, mesh: Mesh, what: str = "leading axis") -> List[Tensor]:
+    """``x``'s leading axis in contiguous equal blocks, block ``i`` on shard
+    ``i``'s device (a view where it already lives there)."""
+    b = block_size(x.shape[0], mesh, what)
+    return [x[i * b:(i + 1) * b].to(dev) for i, dev in enumerate(mesh.devices)]
+
+
+def shard_map(body: Callable, mesh: Mesh, *sharded: Tensor) -> list:
+    """``body(device, *blocks)`` once per shard, in shard order; returns the
+    per-shard outputs. Each tensor of ``sharded`` is :func:`split` over the
+    mesh; the body moves what it replicates to ``device`` itself."""
+    parts = [split(x, mesh) for x in sharded]
+    return [body(dev, *(p[i] for p in parts))
+            for i, dev in enumerate(mesh.devices)]
+
+
+def psum(parts: Sequence[Tensor], mesh: Mesh) -> Tensor:
+    """The shards' integer parts summed exactly in int32 on the mesh's first
+    device (the merge of sketches: integer addition, wrapping as the
+    reference's ``psum`` of int32 does)."""
+    if len(parts) != mesh.size:
+        raise ValueError(f"psum needs one part per shard ({mesh.size}); got "
+                         f"{len(parts)}")
+    for p in parts:
+        if p.dtype.is_floating_point or p.dtype == torch.bool:
+            raise ValueError(f"psum sums integer parts; got {p.dtype}")
+    out = parts[0].to(mesh.first, torch.int32, copy=True)
+    for p in parts[1:]:
+        out += p.to(mesh.first, torch.int32)
+    return out
+
+
+def gather(parts: Sequence[Tensor], mesh: Mesh) -> Tensor:
+    """Per-shard blocks concatenated in shard order on the mesh's first
+    device (a leading-axis ``P(axis)`` output, read in one place)."""
+    return torch.cat([p.to(mesh.first) for p in parts])

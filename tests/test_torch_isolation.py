@@ -36,7 +36,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.serve.tiered_gateway",
                  "repro_torch.serve.wire",
                  "repro_torch.core.privacy",
-                 "repro_torch.launch.storm_serve"):
+                 "repro_torch.launch.storm_serve",
+                 "repro_torch.core.distributed",
+                 "repro_torch.sharding.mesh",
+                 "repro_torch.sharding.specs"):
         assert name in report["modules"]
         assert name in report["loaded"]
     leaked = [m for m in report["loaded"]
