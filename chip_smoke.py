@@ -160,8 +160,37 @@ Phases, each of which raises on failure (exit code 1, no result line):
     the meshless gateway's in turns; the tiered gateway on phase 14's cell
     over 4 shards against phase 14's run.
 
+19. the LM, run after phase 11's timings: qwen2-7b at its published width
+    (28 layers, d_model 3584, vocab 152064, bf16; 7.6e9 parameters drawn
+    on the card from a seed), served by two fresh ``ServeEngine`` runs (4
+    slots, cache 256, 8 greedy requests of 8-token prompts and 16 new
+    tokens: equal streams), then by a tapped engine (cycles 13 and 27,
+    entropy targets) feeding a ``TelemetryBridge`` over a 2-tenant paired
+    gateway at d = 3587, R = 2048, p = 4 (the same streams: tap
+    neutrality); the probe stream (2048 + 512 held-out random 16-token
+    sequences through ``extract_tap_features``), each tap layer sketched
+    by ``probes.sketch_features`` (kernel 1's wide body, bit for bit
+    against its plain version) and fitted by ``fit_probe`` at a DFO step
+    of 0.01 (the default, 2, diverges at d = 3585; kernel 2: the first
+    steps bit for bit against the plain versions; the whole fit must leave
+    the zero guard, its trace and held-out MSE within 2% of the scan
+    engine's; held-out R^2 printed); the bridge's served counters against
+    ``sketch_features(moments=frozen)`` on the captured rows and
+    ``bridge.fit_probes`` (kernel 6) against the offline ``fit_probe_many``
+    (heads, traces, selection losses), bit for bit, its first steps
+    against the plain versions'; the main path's launches counted
+    exactly; kernel 4 at a bridge tick and kernels 2 and 6's generic body
+    at d = 3587, m = 17 and 34, bit for bit against their plain versions;
+    prefill then decode against the forward within 4 sqrt(2L + 1) 2^-8
+    max|logit|, relative L2 error within sqrt(2L + 1) 2^-8; ``python -m
+    repro_torch.launch.serve``; then its timings (decode step, tapped and
+    untapped, and tokens/s; ``forward_taps``; the bridge's flushes; the
+    fits; kernels 1 and 4 wide and kernels 2 and 6 at d = 3587, m = 17 and
+    34, beside their bounds; the engine loop's busy share under the
+    profiler), each beside the card's name and power limit.
+
 The ``kernels`` line's launches are the main path's (phases 5, 7, 9, 10, 12,
-13, 16) plus phase 18's mesh runs (their meshless comparisons do not
+13, 16, 19) plus phase 18's mesh runs (their meshless comparisons do not
 count). The last two lines are the card (nvidia-smi's name and power limit)
 and ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
 the repository beside this file; without either it exits non-zero.
@@ -173,6 +202,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -263,6 +293,25 @@ WIRE_TENANTS, WIRE_CHUNKS, WIRE_POINTS = 4, 8, 17
 # 16 members against the merged sketch; phase 7's bank with 2 restarts per
 # tenant.
 MESH_SHARDS, MESH_MEMBERS, MESH_RESTARTS = (1, 4), 16, 2
+# The LM path (phase 19): qwen2-7b at its published width, random init from
+# a seed, served as the reference launcher serves it (4 slots, cache 256,
+# 8 greedy requests of 8-token prompts and 16 new tokens), tapped at cycles
+# 13 and 27 into a 2-tenant paired gateway whose hash family spans
+# d_model + 3 = 3587 dimensions (R = 2048, p = 4), flushed every 64 rows;
+# the probe stream is 2048 + 512 held-out random 16-token sequences.
+LM_ARCH, LM_SLOTS, LM_CACHE = "qwen2-7b", 4, 256
+LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 8, 16
+LM_TAPS, LM_TARGET = (13, 27), "entropy"
+LM_TENANTS, LM_HASH_ROWS, LM_PLANES = 2, 2048, 4
+LM_WINDOW, LM_INGEST_SLOTS = 64, 256
+LM_PROBE_SEQS, LM_HELDOUT, LM_PROBE_LEN, LM_PROBE_BATCH = 2048, 512, 16, 256
+LM_CHECK_LEN, LM_CHECK_DECODE = 32, 8
+LM_PLAIN_STEPS, LM_QUERY_M, LM_PROFILE_STEPS = 8, (17, 34), 32
+# The probe fits' DFO step at d = 3585, with the probe's default ridge: the
+# default step (lr 2) diverges there and the zero guard wins; lr 0.01 leaves
+# the guard and its traces follow the scan engine's (PERF.md §6, from
+# scripts/lm_probe_sweep.py).
+LM_PROBE_LR, LM_PROBE_L2 = 0.01, 3e-2
 
 
 
@@ -703,6 +752,445 @@ def plain_versions():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def lm_phase(torch, np, dev, smi, counters, errs):
+    """Phase 19: qwen2-7b at full width, served with activation taps into
+    STORM probes. Returns the launches of its main path (serving with taps
+    into the gateway, the probe stream's sketches, the fits)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import dfo, lsh, probes
+    from repro_torch.device import generator
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sketch_query as query_kernel
+    from repro_torch.kernels import storm_sketch as insert_kernel
+    from repro_torch.models import layers, model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.storm_gateway import StormGateway
+    from repro_torch.telemetry import TapConfig, TelemetryBridge
+    from repro_torch.telemetry.taps import extract_tap_features
+
+    t19 = time.perf_counter()
+    cfg = registry.get_config(LM_ARCH)
+    d = cfg.d_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+
+    # The model: every tensor drawn in f32 on the card and cast to bf16.
+    start = time.perf_counter()
+    params = model.init_params(generator(SEED + 19, dev), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    _log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model {d}, "
+         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+         f"{cfg.vocab_size}, {cfg.param_dtype}: {n_params} parameters "
+         f"(cfg.param_count() {cfg.param_count()}), built in "
+         f"{time.perf_counter() - start:.2f} s; max_memory_allocated "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
+         f"{before / 2**30:.2f} GiB held before the phase)")
+
+    rng = np.random.default_rng(SEED + 19)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=LM_NEW)
+                for i, p in enumerate(prompts)]
+
+    def serve(**kw):
+        eng = ServeEngine(params, cfg, slots=LM_SLOTS, cache_len=LM_CACHE,
+                          device=dev, **kw)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = eng.run(requests())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        return {c.rid: c.tokens for c in out}, eng, secs
+
+    # Two fresh engines serve the same greedy requests: equal streams.
+    first, _, first_s = serve()
+    again, eng, again_s = serve()
+    if first != again or sorted(first) != list(range(LM_REQUESTS)) or any(
+            len(toks) != LM_NEW for toks in first.values()):
+        raise AssertionError("two fresh engines served different streams")
+    gen_tokens = LM_REQUESTS * LM_NEW
+
+    # The main path: the tapped engine feeds a 2-tenant paired gateway
+    # through the bridge; then the probe stream, its sketches and the fits.
+    # The counts are read from here to the end of the fits.
+    tap = TapConfig(cfg.name, layers=LM_TAPS, target=LM_TARGET)
+    hash_params = lsh.init_srp(generator(SEED + 191, dev), LM_HASH_ROWS,
+                               LM_PLANES, d + 3, device=dev)
+    pconf = probes.ProbeConfig(rows=LM_HASH_ROWS, planes=LM_PLANES)
+    gw = StormGateway(hash_params, tenants=LM_TENANTS,
+                      ingest_slots=LM_INGEST_SLOTS, device=dev)
+    bridge = TelemetryBridge(gw, pconf, window=LM_WINDOW)
+    sink = bridge.register(tap, cfg)
+    seen, flush_ms = [], []
+
+    def capture(batch):
+        seen.append(batch)
+        flushes = bridge.flushes
+        start = time.perf_counter()
+        sink(batch)
+        if bridge.flushes > flushes:
+            flush_ms.append(1e3 * (time.perf_counter() - start))
+
+    for c in counters.values():
+        c.launches = 0
+    tapped, teng, tapped_s = serve(taps=tap, tap_sink=capture)
+    start = time.perf_counter()
+    bridge.flush()  # the tail window
+    flush_ms.append(1e3 * (time.perf_counter() - start))
+    if tapped != first:
+        raise AssertionError("taps changed the served token streams")
+    step_ms = {"untapped": 1e3 * again_s / eng.steps,
+               "tapped": 1e3 * tapped_s / teng.steps}
+    _log(f"[lm] serving: {LM_REQUESTS} greedy requests ({LM_PROMPT}-token "
+         f"prompts, {LM_NEW} new tokens) over {LM_SLOTS} slots, cache "
+         f"{LM_CACHE}: two fresh engines and the tapped engine (layers "
+         f"{LM_TAPS}, target {LM_TARGET}) served the same streams; "
+         f"{eng.steps} engine steps")
+
+    # The probe stream: offline taps of random token sequences.
+    n_seq = LM_PROBE_SEQS + LM_HELDOUT
+    toks = torch.randint(0, cfg.vocab_size, (n_seq, LM_PROBE_LEN),
+                         generator=generator(SEED + 192, dev), device=dev)
+    feats, targets, batch_ms = [], [], []
+    for lo in range(0, n_seq, LM_PROBE_BATCH):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        f_b, y_b = extract_tap_features(
+            params, cfg, {"tokens": toks[lo:lo + LM_PROBE_BATCH]}, tap)
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - start))
+        feats.append(f_b)
+        targets.append(y_b)
+    feats, targets = torch.cat(feats, dim=1), torch.cat(targets)
+    if not (torch.isfinite(feats).all() and torch.isfinite(targets).all()
+            and feats.shape == (len(LM_TAPS), n_seq, d)):
+        raise AssertionError(f"probe stream {tuple(feats.shape)} not finite")
+    train = slice(0, LM_PROBE_SEQS)
+    held = slice(LM_PROBE_SEQS, n_seq)
+    states = [probes.sketch_features(None, feats[j, train], targets[train],
+                                     pconf, params=hash_params, device=dev)
+              for j in range(len(LM_TAPS))]
+    lm_dfo = dataclasses.replace(probes._PROBE_DFO, learning_rate=LM_PROBE_LR)
+    fit_kw = dict(dfo_config=lm_dfo, l2=LM_PROBE_L2, device=dev)
+    steps, k = lm_dfo.steps, lm_dfo.num_queries
+    dirs = dfo.sphere_directions(generator(SEED + 193, dev), steps, 1, k,
+                                 d + 1, dev)
+    fits, fit_s = [], []
+    for st in states:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fits.append(probes.fit_probe(None, st, d, directions=dirs, **fit_kw))
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - start)
+    dirs_many = dfo.sphere_directions(generator(SEED + 194, dev), steps,
+                                      len(LM_TAPS), k, d + 1, dev)
+    live = bridge.fit_probes(None, directions=dirs_many, **fit_kw)
+    torch.cuda.synchronize()
+    lm_launches = {name: c.launches for name, c in counters.items()}
+    expected = dict(paired_hash_histogram=len(LM_TAPS),
+                    sketch_query=len(LM_TAPS) * (steps + 1),
+                    sketch_query_banked=steps + 1)
+    ticks = gw.ticks
+    if (any(lm_launches[name] != n for name, n in expected.items())
+            or lm_launches["paired_hash_histogram_banked"] != ticks
+            or sum(lm_launches.values()) != sum(expected.values()) + ticks):
+        raise AssertionError(f"phase 19's main path made {lm_launches}; "
+                             f"expected {expected} and {ticks} banked "
+                             f"inserts")
+    _log(f"[lm] main path launches: {lm_launches} ({ticks} gateway ticks)")
+
+    # The bridge: served counters against the offline build of the same
+    # rows under the frozen moments; fit_probes against fit_probe_many.
+    rows = [b.active() for b in seen]
+    served_feats = torch.from_numpy(np.concatenate([f for f, _ in rows],
+                                                   axis=1)).to(dev)
+    served_y = torch.from_numpy(np.concatenate([y for _, y in rows])).to(dev)
+    offline = []
+    for j, layer in enumerate(LM_TAPS):
+        frozen = bridge.moments_of(cfg.name, layer)
+        off = probes.sketch_features(None, served_feats[j], served_y, pconf,
+                                     moments=frozen, params=hash_params,
+                                     device=dev)
+        got = bridge.probe_state(cfg.name, layer)
+        if not (torch.equal(got.sketch.counts, off.sketch.counts)
+                and int(got.sketch.n) == int(off.sketch.n)
+                == served_y.numel()):
+            raise AssertionError(f"the served counters of layer {layer} "
+                                 f"differ from the offline build")
+        offline.append(off)
+    want = probes.fit_probe_many(None, offline, d, directions=dirs_many,
+                                 **fit_kw)
+    if not all(torch.equal(getattr(live, f), getattr(want, f))
+               for f in ("theta", "intercept", "losses", "fleet_losses")):
+        raise AssertionError("bridge.fit_probes differs from the offline "
+                             "fit_probe_many")
+    # Kernel 6 on the fit's own queries: the served fit's first steps
+    # against fit_probe_many through the plain versions.
+    short = dataclasses.replace(lm_dfo, steps=LM_PLAIN_STEPS)
+    with plain_versions():
+        plain_many = probes.fit_probe_many(
+            None, offline, d, directions=dirs_many[:LM_PLAIN_STEPS],
+            **dict(fit_kw, dfo_config=short))
+    if not torch.equal(live.losses[:, :LM_PLAIN_STEPS], plain_many.losses):
+        raise AssertionError("the served fit's first steps through kernel 6 "
+                             "differ from the plain versions'")
+    _log(f"[lm] bridge: {served_y.numel()} served rows per tap layer in "
+         f"{bridge.flushes} flushes ({gw.ticks} ticks): each layer's counters "
+         f"equal sketch_features(moments=frozen) on the captured rows, and "
+         f"fit_probes equals the offline fit_probe_many (heads, traces, "
+         f"selection losses), bit for bit; its first {LM_PLAIN_STEPS} steps "
+         f"through kernel 6 equal the plain versions' (sketch loss "
+         f"{[round(float(x), 6) for x in live.losses[:, 0]]} at step 0, "
+         f"{[round(float(x), 6) for x in live.losses[:, -1]]} at the last, "
+         f"|theta| {[round(float(x), 6) for x in live.theta.norm(dim=-1)]})")
+
+    # Kernel 1's wide body against its plain version.
+    w = ops.from_lsh_params(hash_params)
+    ones = torch.ones(LM_PROBE_SEQS, device=dev)
+    for j, st in enumerate(states):
+        zs, _ = probes.probe_rows(feats[j, train], targets[train], pconf)
+        plain = ref.paired_hash_histogram(zs.contiguous(), w, ones)
+        err = float((st.sketch.counts.to(torch.int64)
+                     - plain.to(torch.int64)).abs().max())
+        errs["paired_hash_histogram"] = max(errs["paired_hash_histogram"],
+                                            err)
+        if not torch.equal(st.sketch.counts, plain):
+            raise AssertionError(f"kernel 1 at d = {d + 3} differs from its "
+                                 f"plain version (layer {LM_TAPS[j]})")
+
+    # The fits: held-out quality; the first steps against the plain
+    # versions bit for bit; the whole fit against the scan engine (the
+    # plain versions' arithmetic in other kernels): both must leave the zero
+    # guard, their traces agree within 2% and their held-out MSE within 2%.
+    short_kw = dict(fit_kw, dfo_config=short)
+    got = probes.fit_probe(None, states[-1], d,
+                           directions=dirs[:LM_PLAIN_STEPS], **short_kw)
+    with plain_versions():
+        plain_fit = probes.fit_probe(None, states[-1], d,
+                                     directions=dirs[:LM_PLAIN_STEPS],
+                                     **short_kw)
+    if not (torch.equal(got.theta, plain_fit.theta)
+            and torch.equal(got.losses, plain_fit.losses)):
+        raise AssertionError("the kernel fit's first steps differ from the "
+                             "plain versions'")
+    scan = probes.fit_probe(None, states[-1], d, directions=dirs,
+                            engine="scan", **fit_kw)
+    for j, (layer, fit) in enumerate(zip(LM_TAPS, fits)):
+        x_ho, y_ho = feats[j, held], targets[held]
+        mse = float(fit.mse(x_ho, y_ho))
+        mean_mse = float(((y_ho - targets[train].mean()) ** 2).mean())
+        _log(f"[lm] fit_probe, layer {layer} (lr {LM_PROBE_LR}, l2 "
+             f"{LM_PROBE_L2}): {fit_s[j]:.3f} s; held-out MSE {mse:.8g} "
+             f"against the mean predictor's {mean_mse:.8g} (R^2 "
+             f"{1 - mse / mean_mse:.6f}); train MSE "
+             f"{float(fit.mse(feats[j, train], targets[train])):.8g}, var "
+             f"{float(targets[train].var(correction=0)):.8g}; sketch loss "
+             f"{float(fit.losses[0]):.6g} at step 0, final "
+             f"{float(fit.fleet_losses[0]):.6g}; |theta| "
+             f"{float(fit.theta.norm()):.6g}")
+    kernel, kernel_mse = fits[-1], float(fits[-1].mse(feats[-1, held],
+                                                      targets[held]))
+    scan_mse = float(scan.mse(feats[-1, held], targets[held]))
+    gap = float(((kernel.losses - scan.losses).abs()
+                 / scan.losses.abs()).max())
+    cos = float(kernel.theta @ scan.theta
+                / (kernel.theta.norm() * scan.theta.norm()))
+    _log(f"[lm] layer {LM_TAPS[-1]}: the first {LM_PLAIN_STEPS} DFO steps "
+         f"through kernel 2 equal the plain versions' bit for bit; against "
+         f"the scan engine's whole fit: trace apart by {gap:.6f} at most "
+         f"(relative), held-out MSE {kernel_mse:.8g} and {scan_mse:.8g}, "
+         f"cos(theta) {cos:.6f}")
+    if not (kernel.theta.any() and scan.theta.any()):
+        raise AssertionError("the zero guard won a probe fit: its head is "
+                             "the mean predictor, whatever the queries")
+    if not (gap <= 0.02 and abs(kernel_mse - scan_mse) <= 0.02 * scan_mse):
+        raise AssertionError("the kernel fit and the scan fit differ by "
+                             "more than 2% in trace or MSE")
+
+    # Decode against forward, in bf16 (PERF.md §2, §6): per step, max|diff|
+    # within 4 sqrt(2L + 1) u max|logit| and the relative L2 error of the
+    # logits within sqrt(2L + 1) u, u = 2^-8 (2L + 1 rounded stages).
+    check = torch.randint(0, cfg.vocab_size, (2, LM_CHECK_LEN),
+                          generator=generator(SEED + 195, dev), device=dev)
+    cdt = layers.dtype_of(cfg.compute_dtype)
+    table = model.unembed_table(params, cfg)
+    hidden, _ = model.forward(params, cfg, {"tokens": check})
+    full = layers.unembed(table, hidden, cdt).to(torch.float32)
+    prefix = LM_CHECK_LEN - LM_CHECK_DECODE
+    state, logits = model.prefill(params, cfg, {"tokens": check[:, :prefix]},
+                                  cache_len=LM_CHECK_LEN)
+    diffs, rels = [], []
+
+    def against(logits, pos):
+        gap = logits.float() - full[:, pos]
+        diffs.append(float(gap.abs().max()))
+        rels.append(float((gap.norm(dim=-1) / full[:, pos].norm(dim=-1))
+                          .max()))
+
+    against(logits, prefix - 1)
+    for pos in range(prefix, LM_CHECK_LEN):
+        logits, state = model.decode_step(params, cfg, state,
+                                          {"tokens": check[:, pos]}, pos)
+        against(logits, pos)
+    peak = float(full.abs().max())
+    rel_limit = (2 * cfg.num_layers + 1) ** 0.5 * 2.0 ** -8
+    limit = 4.0 * rel_limit * peak
+    _log(f"[lm] decode against forward ({prefix}-token prefill, "
+         f"{LM_CHECK_DECODE} decode steps, bf16): max|diff| "
+         f"{max(diffs):.6f} per step {[round(x, 5) for x in diffs]}, "
+         f"limit {limit:.6f} (max|logit| {peak:.4f}); relative L2 error "
+         f"{max(rels):.6f} per step {[round(x, 5) for x in rels]}, limit "
+         f"{rel_limit:.6f}")
+    if not (max(diffs) <= limit and max(rels) <= rel_limit):
+        raise AssertionError("decode drifted from the forward past its "
+                             "bf16 limits")
+
+    # The launcher, on the card.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         check=True, timeout=600)
+    _log(f"[lm] python -m repro_torch.launch.serve: "
+         f"{out.stdout.strip().splitlines()[-1]}")
+
+    # Timings, each beside the card.
+    _log(f"[time] lm decode step: {step_ms['untapped']:.3f} ms untapped, "
+         f"{step_ms['tapped']:.3f} ms tapped ({eng.steps} steps each, 4 "
+         f"lanes); {gen_tokens / again_s:.1f} generated tokens/s untapped, "
+         f"{gen_tokens / tapped_s:.1f} tapped ({first_s:.3f} s for the "
+         f"first engine, warm-up included) | {smi}")
+    per_batch = statistics.median(batch_ms)
+    _log(f"[time] forward_taps + targets: median {per_batch:.3f} ms per "
+         f"batch of {LM_PROBE_BATCH} x {LM_PROBE_LEN} tokens (min "
+         f"{min(batch_ms):.3f}, max {max(batch_ms):.3f}, first "
+         f"{batch_ms[0]:.3f}), "
+         f"{LM_PROBE_BATCH * LM_PROBE_LEN / per_batch * 1e3:.0f} tokens/s "
+         f"| {smi}")
+    _log(f"[time] bridge flush (standardize, submit, drain): "
+         f"{', '.join(f'{x:.3f}' for x in flush_ms)} ms | {smi}")
+    _log(f"[time] fit_probe ({steps} DFO steps of k = {k}): "
+         f"{', '.join(f'{s:.3f}' for s in fit_s)} s | {smi}")
+    z0, _ = probes.probe_rows(feats[0, train], targets[train], pconf)
+    z0 = z0.contiguous()
+    n, dz = z0.shape
+    p_, da, r_ = w.shape
+    ins_ms = _median_ms(lambda: insert_kernel.paired_hash_histogram(
+        z0, w, ones), 5, torch)
+    ins_dev = _device_ms(lambda: insert_kernel.paired_hash_histogram(
+        z0, w, ones), 5, torch, "projection_tile_kernel")
+    ins_plain = _median_ms(lambda: ref.paired_hash_histogram(z0, w, ones), 1,
+                           torch)
+    macs = float(n) * da * r_ * p_
+    ins_bound, ins_by = _bound(
+        bytes_moved=4 * (z0.numel() + n + w.numel() + r_ * (1 << p_)),
+        flops=2.0 * macs)
+    _log(f"[time] kernel 1 wide (n={n} d={dz} p={p_} R={r_}): "
+         f"{ins_ms:.4f} ms per call by CUDA events, device {ins_dev} ms; "
+         f"plain version {ins_plain:.2f} ms; bound {ins_bound:.4f} ms by "
+         f"{ins_by}; no-FMA floor {_floor_ms(macs, torch):.4f} ms | {smi}")
+    # Kernel 4 at a bridge tick's shape: the 2 tap slots' ingest lanes,
+    # LM_WINDOW rows valid in each.
+    zb = torch.zeros((LM_TENANTS, LM_INGEST_SLOTS, dz), device=dev)
+    zb[:, :LM_WINDOW] = z0[:LM_TENANTS * LM_WINDOW].reshape(
+        LM_TENANTS, LM_WINDOW, dz)
+    mb = torch.zeros((LM_TENANTS, LM_INGEST_SLOTS), device=dev)
+    mb[:, :LM_WINDOW] = 1.0
+    got = insert_kernel.paired_hash_histogram_banked(zb, w, mb)
+    want = ref.paired_hash_histogram_banked(zb, w, mb)
+    errs["paired_hash_histogram_banked"] = max(
+        errs["paired_hash_histogram_banked"],
+        float((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+    if not torch.equal(got, want):
+        raise AssertionError(f"kernel 4 at d = {da} differs from its plain "
+                             f"version")
+    tick_ms = _median_ms(lambda: insert_kernel.paired_hash_histogram_banked(
+        zb, w, mb), 20, torch)
+    tick_plain = _median_ms(lambda: ref.paired_hash_histogram_banked(
+        zb, w, mb), 1, torch)
+    tick_macs = float(LM_TENANTS * LM_WINDOW) * da * r_ * p_
+    tick_bound, tick_by = _bound(
+        bytes_moved=4 * (zb.numel() + mb.numel() + w.numel()
+                         + LM_TENANTS * r_ * (1 << p_)),
+        flops=2.0 * tick_macs)
+    _log(f"[time] kernel 4 wide at a bridge tick ({LM_TENANTS} x "
+         f"{LM_INGEST_SLOTS} slots, {LM_WINDOW} valid each, d={dz}): "
+         f"{tick_ms:.4f} ms per call by CUDA events; plain version "
+         f"{tick_plain:.2f} ms; bound {tick_bound:.4f} ms by {tick_by}; "
+         f"no-FMA floor {_floor_ms(tick_macs, torch):.4f} ms | {smi}")
+    bank = gw.bank.counts
+    for m in LM_QUERY_M:
+        th = torch.randn(m, d + 1, generator=generator(SEED + m, dev),
+                         device=dev)
+        q = lsh.augment_query(lsh.normalize_query(th)).contiguous()
+        idx = (torch.arange(m, device=dev, dtype=torch.int32)
+               * LM_TENANTS // m)
+        for name, fn, plain, table_cells in (
+            ("kernel 2", lambda q=q: query_kernel.sketch_query(
+                q, w, bank[0]), lambda q=q: ref.sketch_query(q, w, bank[0]),
+             bank[0].numel()),
+            ("kernel 6", lambda q=q, idx=idx: query_kernel.sketch_query_banked(
+                q, w, bank, idx), lambda q=q, idx=idx:
+             ref.sketch_query_banked(q, w, bank, idx), bank.numel()),
+        ):
+            got, want = fn(), plain()
+            key = ("sketch_query" if name == "kernel 2"
+                   else "sketch_query_banked")
+            errs[key] = max(errs[key], float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}'s generic body at d = {da}, "
+                                     f"m = {m} differs from its plain version")
+            q_ms = _median_ms(fn, 20, torch)
+            q_dev = _device_ms(fn, 20, torch, "sketch_query_kernel")
+            q_plain = _median_ms(plain, 1, torch)
+            q_bound, q_by = _bound(
+                bytes_moved=4 * (q.numel() + w.numel() + m
+                                 + (m if name == "kernel 6" else 0)
+                                 + min(m * r_, table_cells)),
+                flops=2.0 * m * da * r_ * p_)
+            _log(f"[time] {name} generic body at d={da} m={m} (equal to its "
+                 f"plain version): {1e3 * q_ms:.2f} us per call by CUDA "
+                 f"events, device "
+                 f"{q_dev if q_dev is None else round(1e3 * q_dev, 2)} us; "
+                 f"plain version {q_plain:.2f} ms; bound "
+                 f"{1e3 * q_bound:.2f} us by {q_by} | {smi}")
+    _engine_profile(torch, params, cfg, dev, prompts, smi)
+    _log(f"[lm] phase 19 took {time.perf_counter() - t19:.1f} s; its peak "
+         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+         f" GiB")
+    return lm_launches
+
+
+def _engine_profile(torch, params, cfg, dev, prompts, smi):
+    """Device busy share of ``LM_PROFILE_STEPS`` engine steps, every lane
+    generating, under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(params, cfg, slots=LM_SLOTS, cache_len=LM_CACHE,
+                      device=dev)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=2 * LM_PROFILE_STEPS)
+            for i, p in enumerate(prompts[:LM_SLOTS])]
+    eng.run(reqs, max_steps=LM_PROMPT + 2)  # prompts in, lanes generating
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        eng.run([], max_steps=eng.steps + LM_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - start)
+    busy = sum(us for _, us in _device_events(prof)) / 1e3
+    _log(f"[time] engine loop under the profiler: {LM_PROFILE_STEPS} steps, "
+         f"{wall:.3f} ms wall ({wall / LM_PROFILE_STEPS:.3f} ms a step), "
+         f"device busy {busy:.3f} ms ({100 * busy / wall:.2f}%) | {smi}")
 
 
 def main() -> int:
@@ -2772,6 +3260,11 @@ def main() -> int:
              f"latency {_pct(lat)}; host time in tick_start {_pct(starts)}; "
              f"staging waits {gtm.staging_waits}")
     _gateway_profile(torch, flat_gateway(bank=warm), t_script)
+
+    # -- 19. the LM: qwen2-7b served with taps into STORM probes -------------
+    for name, n in lm_phase(torch, np, dev, smi, counters, errs).items():
+        if name in launches:
+            launches[name] += n
 
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"

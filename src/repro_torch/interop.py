@@ -7,7 +7,10 @@ state crosses the same way: a gateway's warm-start bank (:func:`sketch_bank`)
 and a tiered store's slot map and cold tables (:func:`tiered_bank`), and so
 do privacy releases: a released sketch (:func:`private_sketch`), mechanism
 noise drawn by ``jax.random`` (:func:`noise`) and a view's read plans
-(:func:`read_plan`). This module takes and returns numpy only; it never
+(:func:`read_plan`). An LM's parameter tree crosses through
+:func:`lm_params` and its decode state through :func:`decode_state` (the
+reference stacks per-cycle arrays on a leading ``num_cycles`` axis, the port
+keeps a list of cycles). This module takes and returns numpy only; it never
 imports JAX.
 """
 
@@ -21,6 +24,10 @@ from repro_torch.core.privacy import PrivateSketch, ReadPlan
 from repro_torch.core.sketch import Sketch, SketchBank, counter_dtype
 from repro_torch.core.tiered import TieredBank
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as model_layers
+from repro_torch.models import model as lm
+from repro_torch.models.attention import KVCache
+from repro_torch.models.config import ModelConfig
 
 
 def _float_tensor(arr, ndim: int, what: str, device: DeviceLike) -> torch.Tensor:
@@ -160,3 +167,66 @@ def sketch_to_numpy(sk: Sketch) -> tuple[np.ndarray, int]:
 
 def bank_to_numpy(bank: SketchBank) -> tuple[np.ndarray, np.ndarray]:
     return to_numpy(bank.counts), to_numpy(bank.n)
+
+
+def _tensor_of(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A numpy array (bf16 ones included, through f32: exact) as ``dtype``."""
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dtype)
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def lm_params(tree, cfg: ModelConfig, device: DeviceLike = None) -> dict:
+    """The reference's parameter tree (nested dicts of arrays, ``blocks``
+    stacked on a leading ``num_cycles`` axis) -> the port's, in
+    ``cfg.param_dtype`` on ``device``. Weights keep their ``(in, out)``
+    layout. Raises ``NotImplementedError`` for a model the port cannot
+    build."""
+    lm.check_supported(cfg)
+    dev = resolve_device(device)
+    pdt = model_layers.dtype_of(cfg.param_dtype)
+
+    def cycle(node, c):
+        if isinstance(node, dict):
+            return {k: cycle(v, c) for k, v in node.items()}
+        return _tensor_of(node[c], pdt, dev)
+
+    out = {k: _tensor_of(v, pdt, dev) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = [cycle(tree["blocks"], c) for c in range(cfg.num_cycles)]
+    return out
+
+
+def _stack_cycles(nodes) -> dict:
+    if isinstance(nodes[0], dict):
+        return {k: _stack_cycles([n[k] for n in nodes]) for k in nodes[0]}
+    return np.stack([_f32(n) for n in nodes])
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """Inverse of :func:`lm_params`: a float32 numpy tree with ``blocks``
+    stacked on a leading ``num_cycles`` axis."""
+    out = {k: _f32(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = _stack_cycles(params["blocks"])
+    return out
+
+
+def decode_state(tree, cfg: ModelConfig, device: DeviceLike = None) -> list:
+    """The reference's decode state (``{"pos{i}": (k, v)}``, each ``(C, B,
+    KH, T, D)``) -> the port's list of cycles of :class:`KVCache`, in
+    ``cfg.compute_dtype`` on ``device``."""
+    dev = resolve_device(device)
+    cdt = model_layers.dtype_of(cfg.compute_dtype)
+    return [{name: KVCache(*(_tensor_of(a[c], cdt, dev) for a in kv))
+             for name, kv in tree.items()}
+            for c in range(cfg.num_cycles)]
+
+
+def decode_state_to_numpy(state: list) -> dict:
+    """Inverse of :func:`decode_state`: ``{"pos{i}": (k, v)}`` float32
+    arrays stacked on a leading ``num_cycles`` axis."""
+    return {name: tuple(np.stack([_f32(cycle[name][j]) for cycle in state])
+                        for j in range(2))
+            for name in state[0]}

@@ -141,8 +141,9 @@ class StormWireServer:
 
     def __init__(self, gateway: StormGateway, host: str = "127.0.0.1",
                  port: int = 0, *, depth: int = 2,
-                 idle_sleep_s: float = 0.0002):
+                 idle_sleep_s: float = 0.0002, telemetry=None):
         self.gateway = gateway
+        self.telemetry = telemetry  # a TelemetryBridge: joins the stats frame
         self.depth = depth
         self.idle_sleep_s = idle_sleep_s
         self._lock = threading.Lock()  # gateway queues + owner table
@@ -254,6 +255,8 @@ class StormWireServer:
         if kind == "stats":
             with self._lock:
                 stats = self.gateway.queue_stats()
+                if self.telemetry is not None:
+                    stats["telemetry"] = self.telemetry.telemetry_stats()
             conn.send({"type": "stats_reply", "rid": rid, "stats": stats})
             return
         if kind == "budget":

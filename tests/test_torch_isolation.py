@@ -39,7 +39,20 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.launch.storm_serve",
                  "repro_torch.core.distributed",
                  "repro_torch.sharding.mesh",
-                 "repro_torch.sharding.specs"):
+                 "repro_torch.sharding.specs",
+                 "repro_torch.models.config",
+                 "repro_torch.models.layers",
+                 "repro_torch.models.attention",
+                 "repro_torch.models.model",
+                 "repro_torch.configs.registry",
+                 "repro_torch.configs.qwen2_7b",
+                 "repro_torch.core.probes",
+                 "repro_torch.serve.engine",
+                 "repro_torch.launch.serve",
+                 "repro_torch.telemetry",
+                 "repro_torch.telemetry.taps",
+                 "repro_torch.telemetry.bridge",
+                 "repro_torch.telemetry.monitor"):
         assert name in report["modules"]
         assert name in report["loaded"]
     leaked = [m for m in report["loaded"]

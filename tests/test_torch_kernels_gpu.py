@@ -1119,3 +1119,50 @@ def test_gateway_tick_start_is_sync_free_and_equals_plain(cuda, paired):
             np.testing.assert_array_equal(a.losses, b.losses)
     assert torch.equal(gws[0].bank.counts, gws[1].bank.counts)
     assert gws[0].trace_count == 3
+
+
+# The LM probes' width: qwen2-7b's pooled hidden states (d_model = 3584)
+# plus the target column, hashed over d_model + 3 = 3587 dimensions with
+# R = 2048 and p = 4. Kernels 1 and 4 take the wide body there, kernels 2
+# and 6 the generic one.
+_PROBE_D, _PROBE_R, _PROBE_P = 3584 + 1, 2048, 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2048, 2047])
+def test_inserts_at_d_model_scale_equal_plain_version(cuda, n):
+    z, w, mask = _insert_inputs(n, n, _PROBE_D, _PROBE_P, _PROBE_R, True,
+                                cuda)
+    before = histogram_kernel.paired_hash_histogram.launches
+    got = histogram_kernel.paired_hash_histogram(z, w, mask)
+    assert histogram_kernel.paired_hash_histogram.launches == before + 1
+    assert torch.equal(got, ref.paired_hash_histogram(z, w, mask))
+    # The bridge's ingest: two tap slots of one gateway window each.
+    zb = torch.stack([z[:256], z[256:512]])
+    mb = torch.stack([mask[:256], torch.ones_like(mask[:256])])
+    got_b = histogram_kernel.paired_hash_histogram_banked(zb, w, mb)
+    assert torch.equal(got_b, ref.paired_hash_histogram_banked(zb, w, mb))
+    assert torch.equal(got_b[0], histogram_kernel.paired_hash_histogram(
+        zb[0], w, mb[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [17, 34])
+def test_queries_at_d_model_scale_equal_plain_version(cuda, m):
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn(_PROBE_P, _PROBE_D + 2, _PROBE_R, generator=gen,
+                    device=cuda)
+    counts = torch.randint(0, 1 << 12, (2, _PROBE_R, 1 << _PROBE_P),
+                           generator=gen, device=cuda, dtype=torch.int32)
+    q = torch.randn(m, _PROBE_D + 2, generator=gen, device=cuda)
+    # A fit's fleet step: members in tenant-major order.
+    idx = torch.arange(m, device=cuda, dtype=torch.int32) * 2 // m
+    before = (query_kernel.sketch_query.launches,
+              query_kernel.sketch_query_banked.launches)
+    assert torch.equal(query_kernel.sketch_query(q, w, counts[0]),
+                       ref.sketch_query(q, w, counts[0]))
+    assert torch.equal(query_kernel.sketch_query_banked(q, w, counts, idx),
+                       ref.sketch_query_banked(q, w, counts, idx))
+    assert (query_kernel.sketch_query.launches,
+            query_kernel.sketch_query_banked.launches) == (before[0] + 1,
+                                                           before[1] + 1)
