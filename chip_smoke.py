@@ -107,7 +107,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
     insert and the queries' generic body, with the launch counts of that
     run, and through the kernels' plain versions (the same fit bit for bit);
     its train MSE and R^2 are printed, and its device time under the
-    profiler (the insert's on the projection tile).
+    profiler (the insert's on the projection tile); then one of its DFO
+    steps' queries (m = 65, d = 43) through kernel 2's generic body against
+    the plain version, timed beside its bound, its no-FMA floor and the
+    cuBLAS time of the projection alone.
 16. privacy: the queries' f32 variants (``sketch_query_f32``,
     ``sketch_query_banked_f32``) against their plain versions on f32
     tables of both signs and magnitudes 1e-2 to 1e10 (R in {1, 33, 2048},
@@ -179,14 +182,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
     ``bridge.fit_probes`` (kernel 6) against the offline ``fit_probe_many``
     (heads, traces, selection losses), bit for bit, its first steps
     against the plain versions'; the main path's launches counted
-    exactly; kernel 4 at a bridge tick and kernels 2 and 6's generic body
-    at d = 3587, m = 17 and 34, bit for bit against their plain versions;
+    exactly; the drift scorers on card window deltas of the served
+    counters, equal to their scores of host copies; kernel 4 at a bridge
+    tick and kernels 2 and 6's generic body at d = 3587, m = 17 and 34,
+    bit for bit against their plain versions;
     prefill then decode against the forward within 4 sqrt(2L + 1) 2^-8
     max|logit|, relative L2 error within sqrt(2L + 1) 2^-8; ``python -m
     repro_torch.launch.serve``; then its timings (decode step, tapped and
     untapped, and tokens/s; ``forward_taps``; the bridge's flushes; the
     fits; kernels 1 and 4 wide and kernels 2 and 6 at d = 3587, m = 17 and
-    34, beside their bounds; the engine loop's busy share under the
+    34, beside their bounds, no-FMA floors and, for the queries, the cuBLAS
+    time of the projection alone; the engine loop's busy share under the
     profiler), each beside the card's name and power limit.
 
 The ``kernels`` line's launches are the main path's (phases 5, 7, 9, 10, 12,
@@ -723,6 +729,38 @@ def _bound(bytes_moved: float, flops: float):
     return ((by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations"))
 
 
+def _generic_query_report(torch, label, fn, plain, q, w, banked, table_cells,
+                          smi):
+    """Time one query of the generic body (``fn``, already checked against
+    its plain version) at its shape: CUDA events and the profiler per
+    launch, beside its bound, its no-FMA floor and the cuBLAS time of the
+    projection alone (``torch.matmul(q, w)`` in full fp32: w read once, no
+    codes, no gather, another summation order)."""
+    m = q.shape[0]
+    p_, d_, r_ = w.shape
+    ev_ms = _median_ms(fn, 20, torch)
+    dev_ms = _device_ms(fn, 20, torch, "sketch_query_kernel")
+    plain_ms = _median_ms(plain, 1, torch)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        blas_ms = _median_ms(lambda: torch.matmul(q, w), 20, torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    bound, by = _bound(
+        bytes_moved=4 * (q.numel() + w.numel() + m + (m if banked else 0)
+                         + min(m * r_, table_cells)),
+        flops=2.0 * m * d_ * r_ * p_)
+    floor = _floor_ms(float(m) * d_ * r_ * p_, torch)
+    _log(f"[time] {label} generic body at d={d_} m={m} R={r_} p={p_} (equal "
+         f"to its plain version): {1e3 * ev_ms:.2f} us per call by CUDA "
+         f"events, device "
+         f"{dev_ms if dev_ms is None else round(1e3 * dev_ms, 2)} us; bound "
+         f"{1e3 * bound:.2f} us by {by}; no-FMA floor {1e3 * floor:.2f} us; "
+         f"cuBLAS projection only {1e3 * blas_ms:.2f} us; plain version "
+         f"{plain_ms:.2f} ms | {smi}")
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route every kernel wrapper to its plain PyTorch version (``ref``):
@@ -767,7 +805,9 @@ def lm_phase(torch, np, dev, smi, counters, errs):
     from repro_torch.models import layers, model
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.storm_gateway import StormGateway
-    from repro_torch.telemetry import TapConfig, TelemetryBridge
+    from repro_torch.telemetry import (TapConfig, TelemetryBridge,
+                                       counter_distance, counter_kl,
+                                       window_delta)
     from repro_torch.telemetry.taps import extract_tap_features
 
     t19 = time.perf_counter()
@@ -831,6 +871,7 @@ def lm_phase(torch, np, dev, smi, counters, errs):
     bridge = TelemetryBridge(gw, pconf, window=LM_WINDOW)
     sink = bridge.register(tap, cfg)
     seen, flush_ms = [], []
+    snaps = [gw.bank.counts.clone()]  # the bank at each window boundary
 
     def capture(batch):
         seen.append(batch)
@@ -839,6 +880,7 @@ def lm_phase(torch, np, dev, smi, counters, errs):
         sink(batch)
         if bridge.flushes > flushes:
             flush_ms.append(1e3 * (time.perf_counter() - start))
+            snaps.append(gw.bank.counts.clone())
 
     for c in counters.values():
         c.launches = 0
@@ -846,6 +888,7 @@ def lm_phase(torch, np, dev, smi, counters, errs):
     start = time.perf_counter()
     bridge.flush()  # the tail window
     flush_ms.append(1e3 * (time.perf_counter() - start))
+    snaps.append(gw.bank.counts.clone())
     if tapped != first:
         raise AssertionError("taps changed the served token streams")
     step_ms = {"untapped": 1e3 * again_s / eng.steps,
@@ -952,6 +995,28 @@ def lm_phase(torch, np, dev, smi, counters, errs):
          f"{[round(float(x), 6) for x in live.losses[:, 0]]} at step 0, "
          f"{[round(float(x), 6) for x in live.losses[:, -1]]} at the last, "
          f"|theta| {[round(float(x), 6) for x in live.theta.norm(dim=-1)]})")
+
+    # The drift scorers on the card: each tap layer's first served window
+    # against its last, window_delta of two card snapshots, against the
+    # same scores of host copies.
+    first = window_delta(snaps[0], snaps[1])
+    last = window_delta(snaps[-2], snaps[-1])
+    if not (first.is_cuda and last.is_cuda and len(snaps) > 2):
+        raise AssertionError(f"{len(snaps) - 1} windows, deltas on "
+                             f"{first.device}")
+    drift = []
+    for j, layer in enumerate(LM_TAPS):
+        na, nb = int(first[j, 0].sum()) // 2, int(last[j, 0].sum()) // 2
+        for score in (counter_distance, counter_kl):
+            got = score(first[j], na, last[j], nb)
+            if got != score(first[j].cpu().numpy(), na,
+                            last[j].cpu().numpy(), nb):
+                raise AssertionError(f"{score.__name__} of card deltas "
+                                     f"differs from the host copies'")
+            drift.append(f"layer {layer} {score.__name__} {got:.6f}")
+    _log(f"[lm] drift scorers on card window deltas ({len(snaps) - 1} "
+         f"windows; the first against the last, equal to the host copies' "
+         f"scores): {', '.join(drift)}")
 
     # Kernel 1's wide body against its plain version.
     w = ops.from_lsh_params(hash_params)
@@ -1148,20 +1213,8 @@ def lm_phase(torch, np, dev, smi, counters, errs):
             if not torch.equal(got, want):
                 raise AssertionError(f"{name}'s generic body at d = {da}, "
                                      f"m = {m} differs from its plain version")
-            q_ms = _median_ms(fn, 20, torch)
-            q_dev = _device_ms(fn, 20, torch, "sketch_query_kernel")
-            q_plain = _median_ms(plain, 1, torch)
-            q_bound, q_by = _bound(
-                bytes_moved=4 * (q.numel() + w.numel() + m
-                                 + (m if name == "kernel 6" else 0)
-                                 + min(m * r_, table_cells)),
-                flops=2.0 * m * da * r_ * p_)
-            _log(f"[time] {name} generic body at d={da} m={m} (equal to its "
-                 f"plain version): {1e3 * q_ms:.2f} us per call by CUDA "
-                 f"events, device "
-                 f"{q_dev if q_dev is None else round(1e3 * q_dev, 2)} us; "
-                 f"plain version {q_plain:.2f} ms; bound "
-                 f"{1e3 * q_bound:.2f} us by {q_by} | {smi}")
+            _generic_query_report(torch, name, fn, plain, q, w,
+                                  name == "kernel 6", table_cells, smi)
     _engine_profile(torch, params, cfg, dev, prompts, smi)
     _log(f"[lm] phase 19 took {time.perf_counter() - t19:.1f} s; its peak "
          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -2224,9 +2277,27 @@ def main() -> int:
     if not (torch.isfinite(wide_kernel.theta).all()
             and wide_kernel.theta.shape == (WIDE_FEATURES,)):
         raise AssertionError(f"the wide fit gave {wide_kernel.theta}")
-    # Where the wide fit's time goes: its one insert on the projection tile.
+    # Where the wide fit's time goes: its one insert on the projection tile
+    # and 403 queries through the queries' generic body (d = 43).
     _fit_profile("wide", run_wide, torch,
                  ("projection_tile_kernel", "sketch_query_kernel"))
+    ww = ops.from_lsh_params(wide_draws["params"])
+    wide_counts = wide_kernel.sketch.counts
+    thw = torch.randn(2 * WIDE_K + 1, WIDE_FEATURES + 1,
+                      generator=generator(SEED + 15, dev), device=dev)
+    qw = lsh.augment_query(lsh.normalize_query(thw)).contiguous()
+    got = query_kernel.sketch_query(qw, ww, wide_counts)
+    want = ref.sketch_query(qw, ww, wide_counts)
+    errs["sketch_query"] = max(errs["sketch_query"],
+                               float((got - want).abs().max()))
+    if not torch.equal(got, want):
+        raise AssertionError(f"kernel 2's generic body at d = {wide_dim} "
+                             f"differs from its plain version")
+    _generic_query_report(
+        torch, "kernel 2 (a DFO step of the wide fit)",
+        lambda: query_kernel.sketch_query(qw, ww, wide_counts),
+        lambda: ref.sketch_query(qw, ww, wide_counts), qw, ww, False,
+        wide_counts.numel(), smi)
     del xw, yw
 
     # -- 16. privacy: the f32 queries, a release, the private gateways ---------

@@ -30,7 +30,11 @@ def window_delta(prev_counts: torch.Tensor, cur_counts: torch.Tensor
 
 
 def _probabilities(counts, n: float, paired: bool, smoothing: float = 0.0):
+    """``counts`` a numpy array, or a tensor on any device (copied to the
+    host as float64, as numpy of a jax Array copies it in the reference)."""
     per = 2.0 if paired else 1.0
+    if isinstance(counts, torch.Tensor):
+        counts = counts.detach().to("cpu", torch.float64).numpy()
     c = np.asarray(counts, np.float64) + smoothing
     return c / (per * n + smoothing * c.shape[-1])
 

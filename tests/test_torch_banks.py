@@ -89,9 +89,13 @@ def test_banked_inserts_equal_jax(paired, out, weighted):
 
 
 @pytest.mark.parametrize("counts_dtype", ["int32", "int16", "int8"])
-def test_banked_query_equals_jax(counts_dtype):
-    rng = np.random.default_rng(11)
-    s, m, d, p, r = 4, 37, 9, 4, 48
+@pytest.mark.parametrize("seed,s,m,d,p,r", [(11, 4, 37, 9, 4, 48),
+                                            # The card's generic body:
+                                            # d > 32 or p > 8.
+                                            (12, 2, 34, 43, 4, 32),
+                                            (13, 3, 17, 12, 9, 33)])
+def test_banked_query_equals_jax(seed, s, m, d, p, r, counts_dtype):
+    rng = np.random.default_rng(seed)
     q = rng.normal(size=(m, d)).astype(np.float32)
     w = rng.normal(size=(p, d, r)).astype(np.float32)
     hi = min(np.iinfo(counts_dtype).max, (1 << 24) // r)

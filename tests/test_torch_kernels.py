@@ -148,7 +148,12 @@ def test_paired_srp_hash_positive_side_is_srp_of_augmented():
 
 @pytest.mark.parametrize("counts_dtype", ["int32", "int16", "int8"])
 @pytest.mark.parametrize("seed,m,d,p,r", [(0, 17, 12, 4, 64), (1, 198, 7, 8, 33),
-                                          (2, 5, 3, 1, 100)])
+                                          (2, 5, 3, 1, 100),
+                                          # The card's generic body: d > 32
+                                          # or p > 8.
+                                          (3, 17, 43, 4, 64),
+                                          (4, 17, 515, 4, 32),
+                                          (5, 34, 12, 9, 33)])
 def test_sketch_query_equals_jax(seed, m, d, p, r, counts_dtype):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(m, d)).astype(np.float32)

@@ -611,19 +611,36 @@ def test_query_kernels_shapes_equal_plain_version(cuda, m, rows, p,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("counts_dtype", [torch.int32, torch.int16, torch.int8])
+@pytest.mark.parametrize("rows", [1, 33, 300, 4096])
+@pytest.mark.parametrize("p", [1, 5, 8, 9, 16])
 @pytest.mark.parametrize("d", [33, 515])
-@pytest.mark.parametrize("m", [17, 1001])
-def test_query_kernels_wide_rows_equal_plain_version(cuda, m, d):
-    gen = torch.Generator(device=cuda).manual_seed(m + d)
-    w = torch.randn(4, d, 300, generator=gen, device=cuda)
-    counts = torch.randint(0, 1 << 20, (3, 300, 16), generator=gen,
-                           device=cuda, dtype=torch.int32)
+@pytest.mark.parametrize("m", [1, 17, 34, 65, 1001])
+def test_query_kernels_wide_rows_equal_plain_version(cuda, m, d, p, rows,
+                                                     counts_dtype):
+    # The generic body (d > 32): each tile shape of its plan (4 or 8 warps
+    # of 3, 5 or 9 points; several tiles at m = 1001), R that is not a
+    # multiple of a block's 16 rows nor of 4 (cp.async in place of TMA),
+    # passes over the planes (p > 8), narrow and negative counters; lone and
+    # banked, bit for bit, one launch per call, the workspace zero after.
+    gen = torch.Generator(device=cuda).manual_seed(m + d + p + rows)
+    w = torch.randn(p, d, rows, generator=gen, device=cuda)
+    hi = min(torch.iinfo(counts_dtype).max, 1 << 20)
+    counts = torch.randint(-hi, hi, (3, rows, 1 << p), generator=gen,
+                           device=cuda, dtype=torch.int32).to(counts_dtype)
     q = torch.randn(m, d, generator=gen, device=cuda)
     idx = torch.randint(0, 3, (m,), generator=gen, device=cuda)
+    before = (query_kernel.sketch_query.launches,
+              query_kernel.sketch_query_banked.launches)
     assert torch.equal(query_kernel.sketch_query(q, w, counts[1]),
                        ref.sketch_query(q, w, counts[1]))
     assert torch.equal(query_kernel.sketch_query_banked(q, w, counts, idx),
                        ref.sketch_query_banked(q, w, counts, idx))
+    assert (query_kernel.sketch_query.launches,
+            query_kernel.sketch_query_banked.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert _workspace_is_zero(torch.device("cuda",
+                                           torch.cuda.current_device()))
 
 
 @pytest.mark.gpu
@@ -715,16 +732,18 @@ def test_f32_query_kernels_large_batches_and_wide_rows(cuda, m, p, d):
 
 
 @pytest.mark.gpu
-def test_f32_and_integer_queries_share_a_clean_workspace(cuda):
-    # f32 and integer queries in turn on one stream: each leaves the int64
-    # sums and the tickets at zero for the next.
+@pytest.mark.parametrize("d", [12, 40])
+def test_f32_and_integer_queries_share_a_clean_workspace(cuda, d):
+    # f32 and integer queries in turn on one stream, through the staged body
+    # (d = 12) and the generic one (d = 40): each leaves the int64 sums and
+    # the tickets at zero for the next.
     gen = torch.Generator(device=cuda).manual_seed(13)
-    w = torch.randn(4, 12, 2048, generator=gen, device=cuda)
+    w = torch.randn(4, d, 2048, generator=gen, device=cuda)
     counts = torch.randint(0, 1 << 20, (4, 2048, 16), generator=gen,
                            device=cuda, dtype=torch.int32)
     dev = torch.device("cuda", torch.cuda.current_device())
     for m in (4096, 17, 512, 1, 272, 4097, 33):
-        q = torch.randn(m, 12, generator=gen, device=cuda)
+        q = torch.randn(m, d, generator=gen, device=cuda)
         idx = torch.randint(0, 4, (m,), generator=gen, device=cuda)
         noisy = counts.float() + 0.5
         got = query_kernel.sketch_query_banked(q, w, noisy, idx)
@@ -1166,3 +1185,41 @@ def test_queries_at_d_model_scale_equal_plain_version(cuda, m):
     assert (query_kernel.sketch_query.launches,
             query_kernel.sketch_query_banked.launches) == (before[0] + 1,
                                                            before[1] + 1)
+    assert _workspace_is_zero(torch.device("cuda",
+                                           torch.cuda.current_device()))
+    # The f32 variant at the same shape: two launches give the same bits,
+    # within 2^-22 mean|x| of the plain version; an integer-valued f32
+    # table gives the integer body's result.
+    tables = _f32_tables(gen, (2, _PROBE_R, 1 << _PROBE_P), cuda)
+    for call, plain in (
+        (lambda c: query_kernel.sketch_query(q, w, c[0]),
+         lambda c: ref.sketch_query(q, w, c[0])),
+        (lambda c: query_kernel.sketch_query_banked(q, w, c, idx),
+         lambda c: ref.sketch_query_banked(q, w, c, idx)),
+    ):
+        got = call(tables)
+        assert torch.equal(got, call(tables))
+        assert _within_f32_bound(got, plain(tables), plain(tables.abs()))
+        assert torch.equal(call(counts.float()), call(counts))
+    assert _workspace_is_zero(torch.device("cuda",
+                                           torch.cuda.current_device()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [True, False])
+def test_drift_scorers_take_card_tensors(cuda, paired):
+    # window_delta of two card snapshots stays on the card; both scorers
+    # take it and give the numpy scores bit for bit.
+    from repro_torch.telemetry import counter_distance, counter_kl, window_delta
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    snaps = [torch.randint(0, 9, (2048, 16), generator=gen, device=cuda,
+                           dtype=torch.int32) for _ in range(3)]
+    snaps[1] += snaps[0]
+    snaps[2] += snaps[1]
+    a, b = window_delta(snaps[0], snaps[1]), window_delta(snaps[1], snaps[2])
+    assert a.is_cuda and b.is_cuda
+    na, nb = 40, 33
+    for score in (counter_distance, counter_kl):
+        assert score(a, na, b, nb, paired=paired) == score(
+            a.cpu().numpy(), na, b.cpu().numpy(), nb, paired=paired)

@@ -362,6 +362,28 @@ class TestDriftMonitor:
             assert counter_kl(a, 40, b, 33, paired=paired) == \
                 jmonitor.counter_kl(a, 40, b, 33, paired=paired)
 
+    def test_counter_scores_take_window_delta_tensors(self):
+        """Both scorers on the int64 tensors window_delta returns equal the
+        numpy scores and the reference's bit for bit."""
+        rng = np.random.default_rng(3)
+        snaps = [torch.from_numpy(rng.integers(0, 9, size=(6, 16))
+                                  .astype(np.int32)) for _ in range(3)]
+        snaps[1] += snaps[0]
+        snaps[2] += snaps[1]
+        a, b = window_delta(snaps[0], snaps[1]), window_delta(snaps[1],
+                                                              snaps[2])
+        assert a.dtype == torch.int64 and a.device.type == "cpu"
+        for paired in (True, False):
+            for score, jscore in ((counter_distance,
+                                   jmonitor.counter_distance),
+                                  (counter_kl, jmonitor.counter_kl)):
+                got = score(a, 40, b, 33, paired=paired)
+                assert got == score(a.numpy(), 40, b.numpy(), 33,
+                                    paired=paired)
+                assert got == jscore(jnp.asarray(a.numpy()), 40,
+                                     jnp.asarray(b.numpy()), 33,
+                                     paired=paired)
+
     def test_counter_distance_basics(self):
         a = np.asarray([[4, 4, 0, 0], [2, 2, 2, 2]], np.int64)
         assert counter_distance(a, 4, a, 4) == 0.0
