@@ -195,6 +195,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
     time of the projection alone; the engine loop's busy share under the
     profiler), each beside the card's name and power limit.
 
+20. training, after phase 19 (whose model is freed first): gemma3-1b at
+    its published width and depth (26 layers, d_model 1152, vocab 262144,
+    bf16 params; 1.0e9 drawn on the card from a seed) with the reference's
+    AdamW defaults (f32 master, mu and nu) but a 2-step warmup to lr 1e-3,
+    on a fixed batch of 4 x 1024 random tokens (past the 512-token local
+    window; two xent chunks), through ``trainer.train``: 4 steps with one
+    save (keep 1) under ``.chip_scratch/``, then a second run that resumes
+    from step 4 to 6 (``resumed_from`` 4, no restores: a CUDA error is
+    sticky, so the restore branch must never hide one). The first loss in
+    [0.3, 3] ln(vocab), every loss and gradient norm finite, the last loss
+    below the first; the newest checkpoint restored into a fresh template
+    bit for bit against the state in memory; the restored params served
+    (4 slots, cache 256, greedy) with the same streams as the params in
+    memory; one step's gradients under remat "nothing" against "none"
+    within 2^-8 relative L2 a leaf, the remat peak the lower; ``python -m
+    repro_torch.launch.train`` on the smoke config. It prints the steady
+    step (host clock ending in a sync), tokens/s, model FLOP/s (6 N T / t)
+    and its share of the bf16 peak, a step's busy share and device
+    launches under the profiler, the peaks, and each save's and restore's
+    seconds and bytes, beside the card's name and power limit. The
+    training path launches none of the seven kernels.
+
 The ``kernels`` line's launches are the main path's (phases 5, 7, 9, 10, 12,
 13, 16, 19) plus phase 18's mesh runs (their meshless comparisons do not
 count). The last two lines are the card (nvidia-smi's name and power limit)
@@ -318,6 +340,18 @@ LM_PLAIN_STEPS, LM_QUERY_M, LM_PROFILE_STEPS = 8, (17, 34), 32
 # the guard and its traces follow the scan engine's (PERF.md §6, from
 # scripts/lm_probe_sweep.py).
 LM_PROBE_LR, LM_PROBE_L2 = 0.01, 3e-2
+# The training path (phase 20): gemma3-1b at its published widths and depth
+# (26 layers, d_model 1152, vocab 262144, bf16 parameters; 1.0e9 of them),
+# random init from a seed, the reference's AdamW defaults (f32 master, mu
+# and nu) but for a 2-step warmup to lr 1e-3, on one fixed batch of 4 x
+# 1024 random tokens (past the 512-token local window; two 512-token xent
+# chunks). The trainer runs 4 steps with one save (keep 1), resumes to 6;
+# the checkpoints go under .chip_scratch/ (gitignored), removed at the end.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "gemma3-1b", 4, 1024
+TRAIN_LR, TRAIN_WARMUP, TRAIN_FIRST, TRAIN_RESUME = 1e-3, 2, 4, 6
+TRAIN_SLOTS, TRAIN_CACHE, TRAIN_REQUESTS, TRAIN_NEW = 4, 256, 4, 8
+# H100 SXM data sheet: dense bf16 on the tensor cores.
+PEAK_BF16_FLOPS = 989e12
 
 
 
@@ -1244,6 +1278,302 @@ def _engine_profile(torch, params, cfg, dev, prompts, smi):
     _log(f"[time] engine loop under the profiler: {LM_PROFILE_STEPS} steps, "
          f"{wall:.3f} ms wall ({wall / LM_PROFILE_STEPS:.3f} ms a step), "
          f"device busy {busy:.3f} ms ({100 * busy / wall:.2f}%) | {smi}")
+
+
+_TRAIN_KINDS = (
+    ("f32 products (attention)", ("f32f32", "sgemm")),
+    ("bf16 products", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
+    ("foreach (AdamW, norms)", ("multi_tensor", "foreach")),
+    ("index and gather", ("index", "gather", "scatter", "embedding")),
+    ("reductions", ("reduce", "softmax", "logsumexp", "norm")),
+    ("copies and fills", ("memcpy", "memset", "copy", "fill")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def _train_kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in _TRAIN_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def _tree_bytes(torch, tree) -> int:
+    from repro_torch.train import tree as tree_lib
+
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
+
+
+def train_phase(torch, np, dev, smi):
+    """Phase 20: gemma3-1b trained at full width through the trainer, with
+    resume, a restore bit for bit, remat's peak and the restored model
+    served."""
+    import gc
+    import shutil
+
+    from repro_torch.configs import registry
+    from repro_torch.device import generator
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import checkpoint
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+    from repro_torch.train import tree as tree_lib
+
+    t20 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    scratch = ROOT / ".chip_scratch" / "train_phase"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    disk = shutil.disk_usage(scratch)
+    cfg = registry.get_config(TRAIN_ARCH)
+    tcfg = ts.TrainConfig(optimizer=opt_lib.AdamWConfig(
+        learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+    n_params = cfg.param_count()
+    _log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, local "
+         f"window {cfg.local_window}, {cfg.param_dtype} params, remat "
+         f"{cfg.remat_policy!r}: {n_params} parameters; AdamW lr "
+         f"{TRAIN_LR}, warmup {TRAIN_WARMUP}, f32 master and moments; "
+         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}; {before / 2**30:.2f} GiB held "
+         f"before the phase; disk under {scratch.parent.name}/: "
+         f"{disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f}")
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=gen, dtype=torch.int64).to(torch.int32)
+    batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1,
+                                                          dims=1).to(dev)}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # The trainer's step, recording what the loop does not report: each
+    # step's metrics and its time on the host clock, ending in the sync of
+    # reading the loss; and the state it leaves.
+    record = {"ms": [], "grad_norm": [], "state": None}
+
+    def step_fn(state, b):
+        start = time.perf_counter()
+        state, metrics = ts.train_step(state, b, cfg, tcfg)
+        loss = float(metrics["loss"])
+        record["ms"].append(1e3 * (time.perf_counter() - start))
+        record["grad_norm"].append(float(metrics["grad_norm"]))
+        record["state"] = state
+        return state, {"loss": loss}
+
+    saves, restores = [], []
+    save, restore = checkpoint.save, checkpoint.restore
+
+    def timed_save(directory, step, state, **kw):
+        start = time.perf_counter()
+        path = save(directory, step, state, **kw)
+        saves.append((step, time.perf_counter() - start, sum(
+            f.stat().st_size for f in Path(path).iterdir())))
+        return path
+
+    def timed_restore(directory, template):
+        start = time.perf_counter()
+        out = restore(directory, template)
+        if out is not None:  # run 1 finds no checkpoint
+            restores.append(time.perf_counter() - start)
+        return out
+
+    ckpt_dir = str(scratch / "ckpt")
+    checkpoint.save, checkpoint.restore = timed_save, timed_restore
+    try:
+        r1 = trainer.train(
+            generator(SEED + 20, dev), cfg, tcfg,
+            trainer.LoopConfig(total_steps=TRAIN_FIRST, ckpt_every=100,
+                               ckpt_dir=ckpt_dir, keep=1),
+            lambda step: batch, step_fn=step_fn, device=dev)
+        record["state"] = None  # run 1's state: run 2 starts from disk
+        r2 = trainer.train(
+            generator(SEED + 20, dev), cfg, tcfg,
+            trainer.LoopConfig(total_steps=TRAIN_RESUME, ckpt_every=100,
+                               ckpt_dir=ckpt_dir, keep=1),
+            lambda step: batch, step_fn=step_fn, device=dev)
+    finally:
+        checkpoint.save, checkpoint.restore = save, restore
+    state = record["state"]
+    record["state"] = None
+    losses = r1.losses + r2.losses
+    band = (0.3 * np.log(cfg.vocab_size), 3 * np.log(cfg.vocab_size))
+    _log(f"[train] trainer: run 1 {r1.steps_run} steps (resumed from "
+         f"{r1.resumed_from}), run 2 {r2.steps_run} steps resumed from "
+         f"{r2.resumed_from}, restores {r1.restores} + {r2.restores}; losses "
+         f"{[round(x, 4) for x in losses]} (first in [{band[0]:.2f}, "
+         f"{band[1]:.2f}]); grad norms "
+         f"{[round(x, 4) for x in record['grad_norm']]}; step ms "
+         f"{[round(x, 1) for x in record['ms']]} | {smi}")
+    if not (r1.steps_run == TRAIN_FIRST and r1.resumed_from is None
+            and r2.resumed_from == TRAIN_FIRST
+            and r2.steps_run == TRAIN_RESUME - TRAIN_FIRST
+            and r1.restores == 0 and r2.restores == 0):
+        raise AssertionError("the trainer did not run, save and resume as "
+                             "configured (or restored on a failure)")
+    if [s for s, _, _ in saves] != [TRAIN_FIRST, TRAIN_RESUME] or \
+            checkpoint.available_steps(ckpt_dir) != [TRAIN_RESUME]:
+        raise AssertionError(f"saves at {[s for s, _, _ in saves]}, kept "
+                             f"{checkpoint.available_steps(ckpt_dir)}")
+    if not band[0] <= losses[0] <= band[1]:
+        raise AssertionError(f"first loss {losses[0]} outside {band}")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(
+            record["grad_norm"])) and losses[-1] < losses[0]):
+        raise AssertionError("the loss did not fall or was not finite")
+    if int(state.step) != TRAIN_RESUME or int(state.opt.step) != TRAIN_RESUME:
+        raise AssertionError("the state's step counters are off")
+
+    # The newest checkpoint into a fresh template: bit for bit the state
+    # in memory.
+    template = tree_lib.tree_map(
+        lambda t: torch.empty_like(t).requires_grad_(t.requires_grad), state)
+    start = time.perf_counter()
+    step, restored, _ = checkpoint.restore(ckpt_dir, template)
+    restores.append(time.perf_counter() - start)
+    del template
+    pairs = list(zip(tree_lib.leaf_paths(restored),
+                     tree_lib.leaf_paths(state)))
+    if step != TRAIN_RESUME or len(pairs) != len(tree_lib.leaves(state)):
+        raise AssertionError(f"restored step {step}")
+    for (name, a), (name_b, b) in pairs:
+        if name != name_b or a.dtype != b.dtype or a.device != b.device \
+                or not torch.equal(a.detach(), b.detach()):
+            raise AssertionError(f"restored {name} differs from memory")
+    n_tensors = len(pairs)
+    del pairs
+    state_bytes = _tree_bytes(torch, state)
+    _log(f"[train] checkpoint: saves at steps "
+         f"{[s for s, _, _ in saves]}, {[round(b / 1e9, 3) for _, _, b in saves]}"
+         f" GB written in {[round(t, 2) for _, t, _ in saves]} s; restores "
+         f"(resume, fresh template) in {[round(t, 2) for t in restores]} s; "
+         f"the state ({state_bytes / 1e9:.3f} GB on the card: bf16 params, "
+         f"f32 master, mu, nu) restored bit for bit (params, master, mu, nu, "
+         f"steps: {n_tensors} tensors) | {smi}")
+
+    # Serve the restored params and the params in memory: equal streams.
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+               for _ in range(TRAIN_REQUESTS)]
+
+    def serve(params):
+        eng = ServeEngine(params, cfg, slots=TRAIN_SLOTS,
+                          cache_len=TRAIN_CACHE, device=dev)
+        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=TRAIN_NEW)
+                       for i, p in enumerate(prompts)])
+        return {c.rid: c.tokens for c in out}
+
+    served = serve(restored.params)
+    del restored
+    if served != serve(state.params) or sorted(served) != list(
+            range(TRAIN_REQUESTS)) or any(len(t) != TRAIN_NEW
+                                          for t in served.values()):
+        raise AssertionError("the restored params served other streams")
+    _log(f"[train] served the restored params: {TRAIN_REQUESTS} greedy "
+         f"requests over {TRAIN_SLOTS} slots, cache {TRAIN_CACHE}, "
+         f"{TRAIN_NEW} new tokens each, the same streams as the params in "
+         f"memory")
+
+    # Remat: one step's gradients under "nothing" (the config's) and "none"
+    # on the same state, with the peak each adds to what is held.
+    grads, peaks = {}, {}
+    for policy in ("nothing", "none"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, g = ts.loss_and_grads(state.params, c, batch)
+        torch.cuda.synchronize()
+        peaks[policy] = (torch.cuda.max_memory_allocated(), held)
+        grads[policy] = tree_lib.leaves(g)
+        del g
+        if not all(bool(torch.isfinite(x).all()) for x in grads[policy]):
+            raise AssertionError(f"non-finite gradients under {policy!r}")
+    # bf16 gradients: the embedding's backward adds with atomics on the
+    # card, so each leaf is held within 2^-8 relative L2 (one bf16 rounding
+    # of every element), and the leaves that came out bit for bit counted.
+    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp(
+        min=1e-30)) for a, b in zip(grads["nothing"], grads["none"])]
+    same = sum(torch.equal(a, b) for a, b in zip(grads["nothing"],
+                                                 grads["none"]))
+    del grads
+    adds = {k: (p - h) / 2**30 for k, (p, h) in peaks.items()}
+    _log(f"[train] remat: gradients under 'nothing' against 'none': "
+         f"{same} of {len(rel)} leaves bit for bit, max relative L2 "
+         f"{max(rel):.3e} (limit 2^-8 = {2 ** -8:.3e}); peak "
+         f"max_memory_allocated {peaks['nothing'][0] / 2**30:.2f} GiB "
+         f"('nothing', {adds['nothing']:.2f} over the "
+         f"{peaks['nothing'][1] / 2**30:.2f} held) against "
+         f"{peaks['none'][0] / 2**30:.2f} GiB ('none', {adds['none']:.2f} "
+         f"over {peaks['none'][1] / 2**30:.2f}) | {smi}")
+    if max(rel) > 2 ** -8:
+        raise AssertionError("remat changed the gradients")
+    if not adds["nothing"] < adds["none"]:
+        raise AssertionError("remat did not lower the peak")
+
+    # One more step under the profiler: the device's busy share and the
+    # launches of a step.
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        state, metrics = ts.train_step(state, batch, cfg, tcfg)
+        float(metrics["loss"])
+        wall = 1e3 * (time.perf_counter() - start)
+    events = _device_events(prof)
+    busy = sum(us for _, us in events) / 1e3
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    kinds, names = {}, {}
+    for name, us in events:
+        for key, table in ((_train_kernel_kind(name), kinds), (name, names)):
+            ms, n = table.get(key, (0.0, 0))
+            table[key] = (ms + us / 1e3, n + 1)
+    by_time = lambda table: sorted(table.items(), key=lambda kv: -kv[1][0])
+    _log("[train] a step's device time by kind: " + "; ".join(
+        f"{k} {ms:.1f} ms ({100 * ms / busy:.1f}%, {n} launches)"
+        for k, (ms, n) in by_time(kinds)) + f" | {smi}")
+    _log("[train] a step's top kernels: " + "; ".join(
+        f"{k[:100]} {ms:.1f} ms ({n})" for k, (ms, n) in by_time(names)[:10])
+        + f" | {smi}")
+    del state
+    steady = statistics.median(record["ms"][1:])
+    flops = 6 * n_params * tokens / (steady / 1e3)
+    _log(f"[time] train step (gemma3-1b, {TRAIN_BATCH} x {TRAIN_SEQ} "
+         f"tokens, remat 'nothing', AdamW): steady {steady:.1f} ms (median "
+         f"of steps 2-{len(record['ms'])} on the host clock, each ending "
+         f"in a sync; first {record['ms'][0]:.1f} ms), "
+         f"{tokens / steady * 1e3:.0f} tokens/s, model FLOP/s 6 N T / t = "
+         f"{flops / 1e12:.1f} T ({100 * flops / PEAK_BF16_FLOPS:.1f}% of "
+         f"the bf16 dense peak); under the profiler {wall:.1f} ms with "
+         f"{busy:.1f} ms of device work (busy {100 * busy / wall:.2f}%), "
+         f"{len(events)} device launches a step; peak max_memory_allocated "
+         f"{step_peak:.2f} GiB a step | {smi}")
+    _log(f"[time] checkpoint of {state_bytes / 1e9:.3f} GB: saves "
+         f"{[round(t, 2) for _, t, _ in saves]} s "
+         f"({[round(b / t / 1e9, 2) for _, t, b in saves]} GB/s), restores "
+         f"{[round(t, 2) for t in restores]} s | {smi}")
+
+    # The launcher, on the card (the smoke config, as phase 19's).
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--smoke-config", "--steps", "4", "--ckpt-dir",
+         str(scratch / "launcher")],
+        cwd=ROOT, env=env, capture_output=True, text=True, check=True,
+        timeout=600)
+    line = out.stdout.strip().splitlines()[-1]
+    if not line.startswith(f"arch={TRAIN_ARCH}-smoke steps=4 "):
+        raise AssertionError(f"launcher: {line}")
+    _log(f"[train] python -m repro_torch.launch.train: {line}")
+    shutil.rmtree(scratch)
+    _log(f"[train] phase 20 took {time.perf_counter() - t20:.1f} s")
 
 
 def main() -> int:
@@ -3336,6 +3666,9 @@ def main() -> int:
     for name, n in lm_phase(torch, np, dev, smi, counters, errs).items():
         if name in launches:
             launches[name] += n
+
+    # -- 20. training: gemma3-1b through the trainer, resumed and served ---
+    train_phase(torch, np, dev, smi)
 
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"

@@ -8,13 +8,20 @@ and a tiered store's slot map and cold tables (:func:`tiered_bank`), and so
 do privacy releases: a released sketch (:func:`private_sketch`), mechanism
 noise drawn by ``jax.random`` (:func:`noise`) and a view's read plans
 (:func:`read_plan`). An LM's parameter tree crosses through
-:func:`lm_params` and its decode state through :func:`decode_state` (the
-reference stacks per-cycle arrays on a leading ``num_cycles`` axis, the port
-keeps a list of cycles). This module takes and returns numpy only; it never
-imports JAX.
+:func:`lm_params`, its decode state through :func:`decode_state` and a
+training state (parameters, AdamW moments and master copies, step counters)
+through :func:`train_state` (the reference stacks per-cycle arrays on a
+leading ``num_cycles`` axis, the port keeps a list of cycles); a checkpoint
+directory the reference wrote is read by :func:`read_jax_checkpoint`. This
+module takes and returns numpy only; it never imports JAX.
 """
 
 from __future__ import annotations
+
+import os
+import re
+from collections.abc import Mapping
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,6 +35,9 @@ from repro_torch.models import layers as model_layers
 from repro_torch.models import model as lm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.train import checkpoint
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import train_step as ts
 
 
 def _float_tensor(arr, ndim: int, what: str, device: DeviceLike) -> torch.Tensor:
@@ -185,16 +195,34 @@ def lm_params(tree, cfg: ModelConfig, device: DeviceLike = None) -> dict:
     layout. Raises ``NotImplementedError`` for a model the port cannot
     build."""
     lm.check_supported(cfg)
-    dev = resolve_device(device)
-    pdt = model_layers.dtype_of(cfg.param_dtype)
+    return _unstack(tree, cfg, model_layers.dtype_of(cfg.param_dtype),
+                    resolve_device(device))
 
+
+def _leaf(a, dtype: Optional[torch.dtype], dev: torch.device) -> torch.Tensor:
+    """A numpy array (an ml_dtypes bfloat16 one through f32: exact) or a
+    tensor, in ``dtype`` (``None``: its own) on ``dev``."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach()
+    else:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))  # a writable copy
+    return t.to(dev, dtype or t.dtype, copy=True)
+
+
+def _unstack(tree, cfg: ModelConfig, dtype: Optional[torch.dtype],
+             dev: torch.device) -> dict:
+    """A reference parameter-shaped tree (``blocks`` stacked on a leading
+    ``num_cycles`` axis) as the port's (a list of cycles)."""
     def cycle(node, c):
-        if isinstance(node, dict):
+        if isinstance(node, Mapping):
             return {k: cycle(v, c) for k, v in node.items()}
-        return _tensor_of(node[c], pdt, dev)
+        return _leaf(node[c], dtype, dev)
 
-    out = {k: _tensor_of(v, pdt, dev) for k, v in tree.items()
-           if k != "blocks"}
+    out = {k: _leaf(v, dtype, dev) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [cycle(tree["blocks"], c) for c in range(cfg.num_cycles)]
     return out
 
@@ -230,3 +258,94 @@ def decode_state_to_numpy(state: list) -> dict:
     return {name: tuple(np.stack([_f32(cycle[name][j]) for cycle in state])
                         for j in range(2))
             for name in state[0]}
+
+
+def _field(node, name: str):
+    """``node.name`` (a named tuple) or ``node[name]`` (a mapping; a missing
+    key is ``None``)."""
+    if isinstance(node, Mapping):
+        return node.get(name)
+    return getattr(node, name)
+
+
+def train_state(tree, cfg: ModelConfig, device: DeviceLike = None
+                ) -> ts.TrainStateT:
+    """The reference's ``TrainStateT`` (``params``, ``opt`` with ``step``,
+    ``mu``, ``nu`` and ``master`` — ``None`` or a tree — and ``step``), as
+    named tuples or nested dicts of numpy arrays or tensors -> the port's.
+    Parameters are in ``cfg.param_dtype`` and require gradients; moments
+    and master copies keep their own dtype (bf16 exactly); the step
+    counters are host int32 tensors."""
+    lm.check_supported(cfg)
+    dev = resolve_device(device)
+    opt = _field(tree, "opt")
+    master = _field(opt, "master")
+    counter = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int32)
+    return ts.TrainStateT(
+        params=ts.trainable(lm_params(_field(tree, "params"), cfg, dev)),
+        opt=opt_lib.AdamWState(
+            step=counter(_field(opt, "step")),
+            mu=_unstack(_field(opt, "mu"), cfg, None, dev),
+            nu=_unstack(_field(opt, "nu"), cfg, None, dev),
+            master=None if master is None else _unstack(master, cfg, None,
+                                                        dev)),
+        step=counter(_field(tree, "step")))
+
+
+def train_state_to_numpy(state: ts.TrainStateT) -> dict:
+    """Inverse of :func:`train_state`: ``{"params", "opt": {"step", "mu",
+    "nu", "master"}, "step"}`` with float32 arrays (bf16 values exactly)
+    stacked on a leading ``num_cycles`` axis, ``master`` ``None`` or a
+    tree, and the counters as ints."""
+    opt = state.opt
+    return {
+        "params": lm_params_to_numpy(state.params),
+        "opt": {"step": int(opt.step), "mu": lm_params_to_numpy(opt.mu),
+                "nu": lm_params_to_numpy(opt.nu),
+                "master": (None if opt.master is None
+                           else lm_params_to_numpy(opt.master))},
+        "step": int(state.step),
+    }
+
+
+_KEY = re.compile(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]")
+
+
+def _path_keys(name: str) -> list:
+    """``".opt.mu['blocks']['pos0']"`` -> ``["opt", "mu", "blocks", "pos0"]``
+    (``jax.tree_util.keystr`` names; ``[3]`` gives the int 3)."""
+    keys, at = [], 0
+    for m in _KEY.finditer(name):
+        if m.start() != at:
+            break
+        keys.append(m.group(1) or m.group(2) if m.group(3) is None
+                    else int(m.group(3)))
+        at = m.end()
+    if at != len(name) or not keys:
+        raise ValueError(f"cannot parse leaf path {name!r}")
+    return keys
+
+
+def read_jax_checkpoint(directory: str):
+    """The newest intact checkpoint the reference's ``train.checkpoint``
+    wrote under ``directory`` (CRCs checked, corrupt ones skipped as its
+    ``restore`` skips them), read with numpy and json alone: ``(step, tree,
+    metadata)`` with ``tree`` nested dicts by leaf path (a ``TrainStateT``
+    gives ``{"params", "opt": {"step", "mu", "nu"[, "master"]}, "step"}``)
+    of CPU tensors; bf16 arrays (``'<V2'`` files) bit for bit. Pass it to
+    :func:`train_state` to restack ``blocks`` into the port's list.
+    Returns ``None`` if there is no intact checkpoint."""
+    if not os.path.isdir(directory):
+        return None
+    loaded = checkpoint.newest_intact(directory)
+    if loaded is None:
+        return None
+    step, arrays, metadata = loaded
+    tree: dict = {}
+    for name, t in arrays.items():
+        *head, last = _path_keys(name)
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = t
+    return step, tree, metadata

@@ -1,15 +1,15 @@
-"""Shared neural-net layers: norms, rotary embeddings, the SwiGLU MLP and the
-embedding tables (port of ``repro.models.layers``).
+"""Shared neural-net layers: norms, rotary embeddings, the SwiGLU MLP, the
+embedding tables and the chunked cross-entropy (port of
+``repro.models.layers``).
 
 Plain functions on tensors over parameter dicts. Matmul weights are stored
 ``(in, out)`` as in the reference, so every product is ``x @ W`` and no
-weight is ever transposed per step. ``chunked_softmax_xent`` belongs to the
-training path and is not ported yet.
+weight is ever transposed per step.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -90,3 +90,50 @@ def normal(shape, scale: float, dtype: torch.dtype, gen: torch.Generator
     """Scaled standard normals drawn in f32 on ``gen``'s device and cast to
     ``dtype`` at once (the reference's per-tensor init)."""
     return (randn(shape, gen) * scale).to(dtype)
+
+
+# --- chunked softmax cross-entropy ------------------------------------------
+
+
+def chunked_softmax_xent(x: Tensor, unembed_table: Tensor, labels: Tensor,
+                         mask: Optional[Tensor] = None, chunk: int = 512
+                         ) -> Tensor:
+    """Mean next-token cross-entropy without the full-sequence logits.
+
+    The ``(B, S, vocab)`` logits dominate activation memory at LM vocab
+    sizes, so the loop takes ``chunk`` positions at a time: each chunk's
+    logits come from the product in ``x``'s dtype, then are f32, as is the
+    logsumexp. Autograd keeps one chunk's f32 logits per chunk. Labels are
+    the next-token ids, already aligned by the caller.
+
+    Args:
+      x: ``(B, S, d)`` final hidden states.
+      unembed_table: ``(d, vocab)``.
+      labels: ``(B, S)`` integer target ids.
+      mask: optional ``(B, S)`` {0, 1} loss mask.
+
+    Returns:
+      the f32 mean loss over unmasked positions (over ``max(count, 1)``).
+    """
+    b, s, _ = x.shape
+    labels = labels.long()
+    mask = (torch.ones((b, s), dtype=torch.float32, device=x.device)
+            if mask is None else mask.to(torch.float32))
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:  # as the reference: zero rows, label 0, mask 0
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    table = unembed_table.to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, s + pad, c):
+        li = labels[:, start:start + c]
+        mi = mask[:, start:start + c]
+        logits = (x[:, start:start + c] @ table).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li[..., None])[..., 0]
+        total = total + ((lse - gold) * mi).sum()
+        count = count + mi.sum()
+    return total / torch.clamp(count, min=1.0)

@@ -1,5 +1,6 @@
-"""Model assembly for the dense family: sequence forward, prefill, decode and
-activation taps (port of ``repro.models.model``, serving half).
+"""Model assembly for the dense family: sequence forward (with remat for
+training), the training loss, prefill, decode and activation taps (port of
+``repro.models.model``).
 
 Parameters are a tree of dicts, laid out as the reference's except that the
 per-cycle blocks are a list (one dict per cycle, ``blocks[c]["pos{i}"]``)
@@ -10,22 +11,26 @@ that block's :class:`~.attention.KVCache`.
 
 Public entry points:
   * ``init_params(gen, cfg, device)``
-  * ``forward(params, cfg, batch)``            -> (final hidden states, aux)
+  * ``forward(params, cfg, batch, remat=False)`` -> (final hidden states, aux)
+  * ``train_loss(params, cfg, batch)``         -> scalar
   * ``init_decode_state(cfg, batch, cache_len, device)``
   * ``prefill(params, cfg, batch, cache_len)`` -> (state, logits_last)
   * ``decode_step(params, cfg, state, inputs, pos, tap_layers=None)``
   * ``forward_taps(params, cfg, batch, tap_layers)`` -> (hidden, taps)
 
-``batch`` is a dict with ``tokens (B, S)``. Only the block kinds ``attn``
+``batch`` is a dict with ``tokens (B, S)`` (and, for the loss, ``labels
+(B, S)`` and an optional ``loss_mask``). Only the block kinds ``attn``
 and ``local_attn`` without experts are ported; building any other model
 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.device import DeviceLike, generator as make_generator
 from repro_torch.device import resolve_device
@@ -161,26 +166,116 @@ def _embed_batch(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
     return x, positions
 
 
+def _cycle(x: Tensor, cycle: Params, positions: Tensor, cfg: ModelConfig
+           ) -> Tensor:
+    """One cycle of blocks over the residual stream."""
+    for i, kind in enumerate(cfg.cycle):
+        x = _apply_block_seq(kind, cycle[f"pos{i}"], x, positions, cfg)
+    return x
+
+
 def _cycles_seq(params: Params, cfg: ModelConfig, x: Tensor,
                 positions: Tensor) -> List[Tensor]:
     """The residual stream after each cycle (the last is the output)."""
     resid = []
     for cycle in params["blocks"]:
-        for i, kind in enumerate(cfg.cycle):
-            x = _apply_block_seq(kind, cycle[f"pos{i}"], x, positions, cfg)
+        x = _cycle(x, cycle, positions, cfg)
         resid.append(x)
     return resid
 
 
-def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
-            ) -> Tuple[Tensor, Tensor]:
-    """Full-sequence forward, without remat (the serving path). Returns
-    ``(hidden (B, S, d), aux)``; ``aux`` is the reference's auxiliary loss,
-    0 for the dense family."""
+# ---------------------------------------------------------------------------
+# Remat: the reference's jax.checkpoint around the cycles
+# ---------------------------------------------------------------------------
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of products
+    without batch dims (the weight products, ``mm`` and ``addmm``) and
+    recompute the rest, attention's batched ``bmm`` included."""
+    if op in _SAVED_BY_DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the reference's ``_remat_policy(policy)``: ``"nothing"``
+    saves only ``fn``'s inputs and recomputes the rest in the backward,
+    ``"dots"`` also saves the weight products, anything else saves
+    everything (no checkpoint). ``fn`` takes its tensors as arguments, so
+    the checkpoint sees every input whose gradient it must return; there is
+    no RNG in the forward, so no RNG state is stashed."""
+    if policy == "nothing":
+        return functools.partial(torch_checkpoint.checkpoint, fn,
+                                 use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        return functools.partial(
+            torch_checkpoint.checkpoint, fn, use_reentrant=False,
+            preserve_rng_state=False, context_fn=functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _dots_policy))
+    return fn
+
+
+def _group(x: Tensor, group: List[Params], positions: Tensor,
+           cfg: ModelConfig) -> Tensor:
+    """Consecutive cycles, each under its own remat (the inner level of
+    ``remat_group``)."""
+    body = _remat(_cycle, cfg.remat_policy)
+    for cycle in group:
+        x = body(x, cycle, positions, cfg)
+    return x
+
+
+def _cycles_remat(params: Params, cfg: ModelConfig, x: Tensor,
+                  positions: Tensor) -> Tensor:
+    """The cycles as the reference's training forward runs them: each under
+    remat, and with ``remat_group`` (when it divides the cycle count) in
+    groups of that many cycles under a second remat, so that only the
+    group boundaries' residuals stay live between the forward and the
+    backward."""
+    blocks = params["blocks"]
+    size = cfg.remat_group
+    if size and size > 1 and cfg.num_cycles % size == 0:
+        outer = _remat(_group, cfg.remat_policy)
+        for start in range(0, len(blocks), size):
+            x = outer(x, blocks[start:start + size], positions, cfg)
+        return x
+    return _group(x, blocks, positions, cfg)
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
+            remat: bool = False) -> Tuple[Tensor, Tensor]:
+    """Full-sequence forward. Returns ``(hidden (B, S, d), aux)``; ``aux``
+    is the reference's auxiliary loss, 0 for the dense family.
+
+    ``remat=True`` is the training forward (:func:`train_loss`): the cycles
+    run under ``cfg.remat_policy`` and ``cfg.remat_group`` as the
+    reference's ``forward`` always runs them. The default, without remat,
+    is the serving path; both give the same values."""
     x, positions = _embed_batch(params, cfg, batch)
-    x = _cycles_seq(params, cfg, x, positions)[-1]
+    if remat:
+        x = _cycles_remat(params, cfg, x, positions)
+    else:
+        x = _cycles_seq(params, cfg, x, positions)[-1]
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
+               aux_weight: float = 0.01) -> Tensor:
+    """The chunked next-token cross-entropy of the remat forward plus
+    ``aux_weight`` times its auxiliary loss (0 for the dense family). With
+    tied embeddings the gradient reaches ``embed`` through both uses."""
+    hidden, aux = forward(params, cfg, batch, remat=True)
+    mask = batch.get("loss_mask")
+    loss = layers.chunked_softmax_xent(
+        hidden, unembed_table(params, cfg), batch["labels"].to(hidden.device),
+        None if mask is None else mask.to(hidden.device),
+        chunk=cfg.xent_chunk)
+    return loss + aux_weight * aux
 
 
 def _check_tap_layers(tap_layers, cfg: ModelConfig) -> Tuple[int, ...]:

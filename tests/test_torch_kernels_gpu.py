@@ -1223,3 +1223,88 @@ def test_drift_scorers_take_card_tensors(cuda, paired):
     for score in (counter_distance, counter_kl):
         assert score(a, na, b, nb, paired=paired) == score(
             a.cpu().numpy(), na, b.cpu().numpy(), nb, paired=paired)
+
+
+def _train_setup(dtype=None):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    cfg = registry.get_config("gemma3-1b", smoke=True)
+    kw = {}
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+        kw = dict(moment_dtype=dtype)
+    tcfg = ts.TrainConfig(optimizer=opt_lib.AdamWConfig(
+        learning_rate=3e-3, warmup_steps=5, total_steps=60, **kw))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 40)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(np.roll(toks, -1, 1))}
+    return cfg, tcfg, batch
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One gemma3-1b-smoke step (tied embeddings, sequences past the local
+    window, remat) on the card and on the CPU from the same f32 state.
+    cuBLAS and the CPU sum products in other orders: loss within 1e-5
+    relative, gradient norm within 1e-4, the whole update within 1e-3
+    relative L2. No bound is put on single elements: Adam divides by
+    ``sqrt(nu) + eps``, so an element whose gradient is as small as the
+    rounding (about 1e-8) moves by a fraction of lr in each device's own
+    direction (on the H100, 0.078 lr at most)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import tree as tree_lib
+
+    resolve_device(cuda)  # IEEE f32 products, no TF32
+    cfg, tcfg, batch = _train_setup()
+    host = ts.init_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                         device="cpu")
+    old = [p.detach().clone() for p in tree_lib.leaves(host.params)]
+    card = tree_lib.tree_map(
+        lambda t: t.detach().to(cuda, copy=True).requires_grad_(
+            t.requires_grad)
+        if t.is_floating_point() else t, host)
+    host, hm = ts.train_step(host, batch, cfg, tcfg)
+    card, cm = ts.train_step(card, batch, cfg, tcfg)
+    assert all(p.device.type == "cuda" for p in tree_lib.leaves(card.params))
+    assert abs(float(cm["loss"]) - float(hm["loss"])) <= 1e-5 * float(
+        hm["loss"])
+    assert abs(float(cm["grad_norm"]) - float(hm["grad_norm"])) <= 1e-4 * \
+        float(hm["grad_norm"])
+    assert float(cm["lr"]) == float(hm["lr"])
+    got = [p.detach().cpu() for p in tree_lib.leaves(card.params)]
+    want = [p.detach() for p in tree_lib.leaves(host.params)]
+    flat = lambda ts_: torch.cat([t.reshape(-1) for t in ts_])
+    g, w, o = flat(got), flat(want), flat(old)
+    assert float((g - w).norm()) <= 1e-3 * float((w - o).norm())
+
+
+@pytest.mark.gpu
+def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A bf16 state (bf16 parameters and moments, f32 master) trained one
+    step on the card, saved and restored onto the card, bit for bit."""
+    from repro_torch.train import checkpoint
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import tree as tree_lib
+
+    cfg, tcfg, batch = _train_setup("bfloat16")
+    state = ts.init_state(torch.Generator(cuda).manual_seed(0), cfg, tcfg,
+                          device=cuda)
+    state, _ = ts.train_step(state, batch, cfg, tcfg)
+    checkpoint.save(str(tmp_path), 1, state)
+    fresh = ts.init_state(torch.Generator(cuda).manual_seed(1), cfg, tcfg,
+                          device=cuda)
+    step, restored, _ = checkpoint.restore(str(tmp_path), fresh)
+    assert step == 1
+    pairs = list(zip(tree_lib.leaf_paths(restored),
+                     tree_lib.leaf_paths(state)))
+    assert {t.dtype for (_, t), _ in pairs} == {torch.bfloat16,
+                                                 torch.float32, torch.int32}
+    for (name, a), (name_b, b) in pairs:
+        assert name == name_b and a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a.detach(), b.detach()), name
