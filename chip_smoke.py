@@ -217,8 +217,31 @@ Phases, each of which raises on failure (exit code 1, no result line):
     seconds and bytes, beside the card's name and power limit. The
     training path launches none of the seven kernels.
 
+21. the six non-dense LMs, after phase 20, each built on the card in bf16
+    at its published widths from a seed and freed before the next:
+    xlstm-1.3b (48 mLSTM blocks), zamba2-2.7b (45 Mamba2 blocks, 9 calls of
+    one shared attention block), musicgen-medium (48 layers fed frame
+    embeddings) and llama-3.2-vision-11b (32 attention and 8
+    cross-attention layers onto 4096 frontend states) at full depth;
+    mixtral-8x22b at 4 of 56 layers and phi3.5-moe at 8 of 32 (printed as
+    ``reduced``: their full bf16 weights need 262 and 78 GiB). Each model:
+    a prefill of 2 x 2048 tokens (two 1024-token chunks), timed; 8 decode
+    steps after it against the forward over all 2056 tokens within 4
+    sqrt(K) 2^-8 max|logit| (K rounded stages of the residual stream; the
+    MoE pair at capacity factor = experts, a token routed apart by a bf16
+    near tie counted and left out); decode steps at 4 lanes, timed; two
+    fresh engines (4 slots, 8 requests, lanes re-admitted) with equal
+    streams for the token-input models; decode-state bytes a lane at
+    cache 256 and 4096; the peak. zamba2 is served with taps at cycles 4
+    and 8 into a 2-tenant gateway at d = 2563 through the bridge: served
+    counters equal their offline builds, ``fit_probe`` and ``fit_probes``
+    (lr 0.01) equal the offline fits, kernels 1, 2, 4 and 6 bit for bit
+    against their plain versions. xlstm-1.3b trains 3 steps of 2 x 2048
+    tokens through ``trainer.train`` (no checkpoint): every gradient leaf
+    finite, the loss falling; its step ms, tokens/s and model FLOP/s.
+
 The ``kernels`` line's launches are the main path's (phases 5, 7, 9, 10, 12,
-13, 16, 19) plus phase 18's mesh runs (their meshless comparisons do not
+13, 16, 19, 21) plus phase 18's mesh runs (their meshless comparisons do not
 count). The last two lines are the card (nvidia-smi's name and power limit)
 and ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
 the repository beside this file; without either it exits non-zero.
@@ -230,6 +253,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -352,6 +376,30 @@ TRAIN_LR, TRAIN_WARMUP, TRAIN_FIRST, TRAIN_RESUME = 1e-3, 2, 4, 6
 TRAIN_SLOTS, TRAIN_CACHE, TRAIN_REQUESTS, TRAIN_NEW = 4, 256, 4, 8
 # H100 SXM data sheet: dense bf16 on the tensor cores.
 PEAK_BF16_FLOPS = 989e12
+# The six non-dense LMs (phase 21), each at its published widths in bf16,
+# random init from a seed: xlstm-1.3b (48 mLSTM blocks), zamba2-2.7b (45
+# Mamba2 blocks and 9 calls of one shared attention block), musicgen-medium
+# (48 layers over frame embeddings) and llama-3.2-vision-11b (32 attention
+# and 8 cross-attention layers onto 4096 frontend states) at full depth;
+# mixtral-8x22b at 4 of its 56 layers and phi3.5-moe at 8 of its 32: their
+# full bf16 weights need 262 and 78 GiB. Each prefills 2 x 2048 tokens
+# (two 1024-token chunks) and decodes 8 tokens against the forward over
+# all 2056 (the MoE pair at capacity factor = experts, so that no token
+# is dropped; the recurrent pair decodes 64, the first 8 held, and xlstm
+# again in f32, all 64 held, as a witness that the drift is rounding);
+# two fresh engines (4 slots, cache 256, 8 greedy requests of 8 + 8
+# tokens) serve each token-input model. zamba2 is served with taps
+# at cycles 4 and 8 into a 2-tenant gateway at d = 2560 + 3; xlstm trains
+# 3 steps of 2 x 2048 tokens.
+ND_ARCHS = ("xlstm-1.3b", "zamba2-2.7b", "mixtral-8x22b",
+            "phi3.5-moe-42b-a6.6b", "musicgen-medium", "llama-3.2-vision-11b")
+ND_LAYERS = {"mixtral-8x22b": 4, "phi3.5-moe-42b-a6.6b": 8}
+ND_BATCH, ND_PREFILL, ND_DECODE = 2, 2048, 8
+ND_DECODE_RECURRENT, ND_WITNESS_ARCH = 64, "xlstm-1.3b"
+ND_SLOTS, ND_CACHE, ND_REQUESTS, ND_PROMPT, ND_NEW = 4, 256, 8, 8, 8
+ND_TIMED_STEPS, ND_STATE_CACHES = 8, (256, 4096)
+ND_TAP_ARCH, ND_TAPS = "zamba2-2.7b", (4, 8)
+ND_TRAIN_ARCH, ND_TRAIN_STEPS, ND_TRAIN_LR = "xlstm-1.3b", 3, 1e-3
 
 
 
@@ -826,6 +874,97 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
+def _held(torch, errs, key, got, want, what):
+    """Hold a kernel's output against its plain version's bit for bit,
+    recording the largest difference under ``key``."""
+    gap = (got.to(torch.float64) - want.to(torch.float64)).abs().max()
+    errs[key] = max(errs[key], float(gap))
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} differs from its plain version")
+
+
+def _path_launches(counters, taps, steps, ticks, label):
+    """The counts of a tapped serve into probes: one kernel 1 and ``steps
+    + 1`` kernel 2 launches a tap layer (its sketch and ``fit_probe``),
+    ``steps + 1`` kernel 6 launches (``fit_probes``) and one kernel 4
+    launch a gateway tick, and nothing else."""
+    launches = {name: c.launches for name, c in counters.items()}
+    expected = dict(paired_hash_histogram=len(taps),
+                    sketch_query=len(taps) * (steps + 1),
+                    sketch_query_banked=steps + 1,
+                    paired_hash_histogram_banked=ticks)
+    if any(launches[name] != n for name, n in expected.items()) or sum(
+            launches.values()) != sum(expected.values()):
+        raise AssertionError(f"{label}'s main path made {launches}; "
+                             f"expected {expected}")
+    return launches
+
+
+def _served_rows(torch, np, dev, seen):
+    """The tap features ``(layers, n, d)`` and targets of the active lanes
+    of every captured tap batch, on the card."""
+    rows = [b.active() for b in seen]
+    feats = torch.from_numpy(np.concatenate([f for f, _ in rows], axis=1))
+    ys = torch.from_numpy(np.concatenate([y for _, y in rows]))
+    return feats.to(dev), ys.to(dev)
+
+
+def _served_against_offline(torch, np, dev, cfg, bridge, taps, seen,
+                            hash_params, pconf, errs, label):
+    """Each tap layer's served counters against ``sketch_features(moments=
+    frozen)`` on the captured rows (kernel 1), bit for bit, and that build
+    against kernel 1's plain version. Returns the offline states and the
+    row count."""
+    from repro_torch.core import probes
+    from repro_torch.kernels import ops, ref
+
+    feats, ys = _served_rows(torch, np, dev, seen)
+    w = ops.from_lsh_params(hash_params)
+    offline = []
+    for j, layer in enumerate(taps):
+        frozen = bridge.moments_of(cfg.name, layer)
+        off = probes.sketch_features(None, feats[j], ys, pconf,
+                                     moments=frozen, params=hash_params,
+                                     device=dev)
+        got = bridge.probe_state(cfg.name, layer)
+        if not (torch.equal(got.sketch.counts, off.sketch.counts)
+                and int(got.sketch.n) == int(off.sketch.n) == ys.numel()):
+            raise AssertionError(f"{label}: the served counters of layer "
+                                 f"{layer} differ from the offline build")
+        zs, _ = probes.probe_rows(feats[j], ys, pconf, moments=frozen)
+        plain = ref.paired_hash_histogram(
+            zs.contiguous(), w, torch.ones(zs.shape[0], device=dev))
+        _held(torch, errs, "paired_hash_histogram", off.sketch.counts,
+              plain, f"{label}: kernel 1 at d = {w.shape[1]} (layer "
+              f"{layer})")
+        offline.append(off)
+    return offline, ys.numel()
+
+
+def _fit_probes_against_offline(torch, d, live, offline, dirs_many, fit_kw,
+                                label):
+    """``bridge.fit_probes``' result against the offline
+    ``fit_probe_many`` bit for bit, and its first ``LM_PLAIN_STEPS`` steps
+    (kernel 6) against the plain versions'."""
+    from repro_torch.core import probes
+
+    want = probes.fit_probe_many(None, offline, d, directions=dirs_many,
+                                 **fit_kw)
+    if not all(torch.equal(getattr(live, f), getattr(want, f))
+               for f in ("theta", "intercept", "losses", "fleet_losses")):
+        raise AssertionError(f"{label}: bridge.fit_probes differs from the "
+                             f"offline fit_probe_many")
+    short = dataclasses.replace(fit_kw["dfo_config"], steps=LM_PLAIN_STEPS)
+    with plain_versions():
+        plain_many = probes.fit_probe_many(
+            None, offline, d, directions=dirs_many[:LM_PLAIN_STEPS],
+            **dict(fit_kw, dfo_config=short))
+    if not torch.equal(live.losses[:, :LM_PLAIN_STEPS], plain_many.losses):
+        raise AssertionError(f"{label}: the served fit's first steps "
+                             f"through kernel 6 differ from the plain "
+                             f"versions'")
+
+
 def lm_phase(torch, np, dev, smi, counters, errs):
     """Phase 19: qwen2-7b at full width, served with activation taps into
     STORM probes. Returns the launches of its main path (serving with taps
@@ -972,55 +1111,19 @@ def lm_phase(torch, np, dev, smi, counters, errs):
                                       len(LM_TAPS), k, d + 1, dev)
     live = bridge.fit_probes(None, directions=dirs_many, **fit_kw)
     torch.cuda.synchronize()
-    lm_launches = {name: c.launches for name, c in counters.items()}
-    expected = dict(paired_hash_histogram=len(LM_TAPS),
-                    sketch_query=len(LM_TAPS) * (steps + 1),
-                    sketch_query_banked=steps + 1)
-    ticks = gw.ticks
-    if (any(lm_launches[name] != n for name, n in expected.items())
-            or lm_launches["paired_hash_histogram_banked"] != ticks
-            or sum(lm_launches.values()) != sum(expected.values()) + ticks):
-        raise AssertionError(f"phase 19's main path made {lm_launches}; "
-                             f"expected {expected} and {ticks} banked "
-                             f"inserts")
-    _log(f"[lm] main path launches: {lm_launches} ({ticks} gateway ticks)")
+    lm_launches = _path_launches(counters, LM_TAPS, steps, gw.ticks,
+                                 "phase 19")
+    _log(f"[lm] main path launches: {lm_launches} ({gw.ticks} gateway "
+         f"ticks)")
 
     # The bridge: served counters against the offline build of the same
     # rows under the frozen moments; fit_probes against fit_probe_many.
-    rows = [b.active() for b in seen]
-    served_feats = torch.from_numpy(np.concatenate([f for f, _ in rows],
-                                                   axis=1)).to(dev)
-    served_y = torch.from_numpy(np.concatenate([y for _, y in rows])).to(dev)
-    offline = []
-    for j, layer in enumerate(LM_TAPS):
-        frozen = bridge.moments_of(cfg.name, layer)
-        off = probes.sketch_features(None, served_feats[j], served_y, pconf,
-                                     moments=frozen, params=hash_params,
-                                     device=dev)
-        got = bridge.probe_state(cfg.name, layer)
-        if not (torch.equal(got.sketch.counts, off.sketch.counts)
-                and int(got.sketch.n) == int(off.sketch.n)
-                == served_y.numel()):
-            raise AssertionError(f"the served counters of layer {layer} "
-                                 f"differ from the offline build")
-        offline.append(off)
-    want = probes.fit_probe_many(None, offline, d, directions=dirs_many,
-                                 **fit_kw)
-    if not all(torch.equal(getattr(live, f), getattr(want, f))
-               for f in ("theta", "intercept", "losses", "fleet_losses")):
-        raise AssertionError("bridge.fit_probes differs from the offline "
-                             "fit_probe_many")
-    # Kernel 6 on the fit's own queries: the served fit's first steps
-    # against fit_probe_many through the plain versions.
-    short = dataclasses.replace(lm_dfo, steps=LM_PLAIN_STEPS)
-    with plain_versions():
-        plain_many = probes.fit_probe_many(
-            None, offline, d, directions=dirs_many[:LM_PLAIN_STEPS],
-            **dict(fit_kw, dfo_config=short))
-    if not torch.equal(live.losses[:, :LM_PLAIN_STEPS], plain_many.losses):
-        raise AssertionError("the served fit's first steps through kernel 6 "
-                             "differ from the plain versions'")
-    _log(f"[lm] bridge: {served_y.numel()} served rows per tap layer in "
+    offline, n_served = _served_against_offline(
+        torch, np, dev, cfg, bridge, LM_TAPS, seen, hash_params, pconf, errs,
+        cfg.name)
+    _fit_probes_against_offline(torch, d, live, offline, dirs_many, fit_kw,
+                                cfg.name)
+    _log(f"[lm] bridge: {n_served} served rows per tap layer in "
          f"{bridge.flushes} flushes ({gw.ticks} ticks): each layer's counters "
          f"equal sketch_features(moments=frozen) on the captured rows, and "
          f"fit_probes equals the offline fit_probe_many (heads, traces, "
@@ -1057,19 +1160,15 @@ def lm_phase(torch, np, dev, smi, counters, errs):
     ones = torch.ones(LM_PROBE_SEQS, device=dev)
     for j, st in enumerate(states):
         zs, _ = probes.probe_rows(feats[j, train], targets[train], pconf)
-        plain = ref.paired_hash_histogram(zs.contiguous(), w, ones)
-        err = float((st.sketch.counts.to(torch.int64)
-                     - plain.to(torch.int64)).abs().max())
-        errs["paired_hash_histogram"] = max(errs["paired_hash_histogram"],
-                                            err)
-        if not torch.equal(st.sketch.counts, plain):
-            raise AssertionError(f"kernel 1 at d = {d + 3} differs from its "
-                                 f"plain version (layer {LM_TAPS[j]})")
+        _held(torch, errs, "paired_hash_histogram", st.sketch.counts,
+              ref.paired_hash_histogram(zs.contiguous(), w, ones),
+              f"kernel 1 at d = {d + 3} (layer {LM_TAPS[j]})")
 
     # The fits: held-out quality; the first steps against the plain
     # versions bit for bit; the whole fit against the scan engine (the
     # plain versions' arithmetic in other kernels): both must leave the zero
     # guard, their traces agree within 2% and their held-out MSE within 2%.
+    short = dataclasses.replace(lm_dfo, steps=LM_PLAIN_STEPS)
     short_kw = dict(fit_kw, dfo_config=short)
     got = probes.fit_probe(None, states[-1], d,
                            directions=dirs[:LM_PLAIN_STEPS], **short_kw)
@@ -1203,14 +1302,10 @@ def lm_phase(torch, np, dev, smi, counters, errs):
         LM_TENANTS, LM_WINDOW, dz)
     mb = torch.zeros((LM_TENANTS, LM_INGEST_SLOTS), device=dev)
     mb[:, :LM_WINDOW] = 1.0
-    got = insert_kernel.paired_hash_histogram_banked(zb, w, mb)
-    want = ref.paired_hash_histogram_banked(zb, w, mb)
-    errs["paired_hash_histogram_banked"] = max(
-        errs["paired_hash_histogram_banked"],
-        float((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
-    if not torch.equal(got, want):
-        raise AssertionError(f"kernel 4 at d = {da} differs from its plain "
-                             f"version")
+    _held(torch, errs, "paired_hash_histogram_banked",
+          insert_kernel.paired_hash_histogram_banked(zb, w, mb),
+          ref.paired_hash_histogram_banked(zb, w, mb),
+          f"kernel 4 at d = {da}")
     tick_ms = _median_ms(lambda: insert_kernel.paired_hash_histogram_banked(
         zb, w, mb), 20, torch)
     tick_plain = _median_ms(lambda: ref.paired_hash_histogram_banked(
@@ -1240,13 +1335,10 @@ def lm_phase(torch, np, dev, smi, counters, errs):
                 q, w, bank, idx), lambda q=q, idx=idx:
              ref.sketch_query_banked(q, w, bank, idx), bank.numel()),
         ):
-            got, want = fn(), plain()
             key = ("sketch_query" if name == "kernel 2"
                    else "sketch_query_banked")
-            errs[key] = max(errs[key], float((got - want).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name}'s generic body at d = {da}, "
-                                     f"m = {m} differs from its plain version")
+            _held(torch, errs, key, fn(), plain(),
+                  f"{name}'s generic body at d = {da}, m = {m}")
             _generic_query_report(torch, name, fn, plain, q, w,
                                   name == "kernel 6", table_cells, smi)
     _engine_profile(torch, params, cfg, dev, prompts, smi)
@@ -1574,6 +1666,577 @@ def train_phase(torch, np, dev, smi):
     _log(f"[train] python -m repro_torch.launch.train: {line}")
     shutil.rmtree(scratch)
     _log(f"[train] phase 20 took {time.perf_counter() - t20:.1f} s")
+
+
+def _rounded_stages(cfg) -> int:
+    """The bf16 roundings of the residual stream between the embeddings and
+    the logits: one per sublayer output (a recurrent mixer; an attention
+    block and, where it has one, its FFN or MoE) and the final norm."""
+    per_cycle = sum(1 if kind in ("mlstm", "mamba")
+                    else 1 + bool(cfg.d_ff or cfg.is_moe)
+                    for kind in cfg.cycle)
+    return per_cycle * cfg.num_cycles + 1
+
+
+@contextlib.contextmanager
+def _routing_log(log):
+    """Record each MoE layer's chosen experts, sorted over the choices,
+    ``(k, groups, tokens)``, and its router logits ``(groups, tokens, E)``
+    a call, in call order."""
+    from repro_torch.models import moe
+
+    dispatch = moe._top_k_dispatch
+
+    def recorded(logits, k, capacity):
+        routing, aux = dispatch(logits, k, capacity)
+        log.append((routing.expert.sort(dim=0).values, logits.detach()))
+        return routing, aux
+
+    moe._top_k_dispatch = recorded
+    try:
+        yield
+    finally:
+        moe._top_k_dispatch = dispatch
+
+
+def _near_ties(torch, fwd_log, other_log, k, limit_share):
+    """The tokens whose top-k sets differ between the forward's routing
+    and another path's over the same positions, each at the first MoE layer
+    where they differ. Sets that differ swap some expert a in the one for
+    some b in the other, so each path's gap between its k-th and (k+1)-th
+    router logit is at most 2 max|delta|, delta the two paths' router
+    logits' difference. The gap must lie within ``limit_share`` of the
+    token's largest router logit (twice the bf16 size of delta), or the
+    other path routed a token apart for another cause than a rounding.
+    ``other_log`` is a list over layers of ``(experts (k, B, T), logits (B,
+    T, E))``. Returns ``(apart (B, T) bool, [(b, t, layer, forward gap,
+    other gap, max|delta|, limit)])``; raises on a gap past its limit."""
+    differs = torch.stack([(f[0] != o[0]).any(dim=0)
+                           for f, o in zip(fwd_log, other_log)])  # (L, B, T)
+    apart = differs.any(dim=0)
+    first = differs.to(torch.int8).argmax(dim=0)                 # (B, T)
+    gaps = []
+    for b, t in apart.nonzero().tolist():
+        layer = int(first[b, t])
+        lf, lo = (log[layer][1][b, t].float() for log in (fwd_log, other_log))
+        gap_f, gap_o = (float(v[k - 1] - v[k])
+                        for v in (lf.topk(k + 1).values,
+                                  lo.topk(k + 1).values))
+        delta = float((lf - lo).abs().max())
+        limit = limit_share * float(lf.abs().max())
+        gaps.append((b, t, layer, gap_f, gap_o, delta, limit))
+        if max(gap_f, gap_o) > limit:
+            raise AssertionError(
+                f"a token (lane {b}, position {t}) routed apart at MoE "
+                f"layer {layer} with router gaps {gap_f:.5f} (forward) and "
+                f"{gap_o:.5f}, past {limit:.5f}: not a near tie")
+    return apart, gaps
+
+
+def _nd_inputs(torch, cfg, gen, dev, b, s):
+    """A batch of ``s`` random tokens (frame embeddings for a model fed
+    embeds) and, for cross-attention, ``cross_attn_tokens`` frontend
+    states."""
+    batch = {}
+    if cfg.embeddings_provided:
+        batch["embeds"] = 0.1 * torch.randn((b, s, cfg.d_model),
+                                            generator=gen, device=dev)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=gen, device=dev)
+    if "cross_attn" in cfg.cycle:
+        batch["cross_states"] = 0.1 * torch.randn(
+            (b, cfg.cross_attn_tokens, cfg.d_model), generator=gen,
+            device=dev)
+    return batch
+
+
+def _step_input(batch, pos):
+    if "embeds" in batch:
+        return {"embeds": batch["embeds"][:, pos:pos + 1]}
+    return {"tokens": batch["tokens"][:, pos]}
+
+
+def _decode_check(torch, cfg, params, batch, label, steps, held=None,
+                  unit=2.0 ** -8):
+    """Prefill ``ND_PREFILL`` tokens, decode ``steps`` more, and hold the
+    logits of the prefill's last token and the first ``held`` steps against
+    the forward over all of them: max|diff| within 4 sqrt(K) u max|logit|,
+    K = _rounded_stages(cfg) (four standard deviations of K independent
+    roundings of unit u: 2^-8 in bf16), with the relative L2 error printed
+    beside its one-deviation size sqrt(K) u. Steps past ``held`` are
+    printed: a recurrent state carries each step's roundings into the
+    next, which K independent roundings do not model. A MoE token whose
+    routing in some layer differs between the two paths must be a near tie
+    there (``_near_ties``: each path's router gap within twice the same
+    4 sqrt(K) u of its largest router logit): a discontinuity of the model
+    that a bf16 rounding crosses, not an error of decode. Its rows are
+    counted and left out of the bound; more than a quarter of the rows left
+    out fails. Returns the max|diff| and relative L2 as shares of their
+    sizes, and the per-step max|diff|."""
+    from repro_torch.models import layers, model
+
+    held = ND_DECODE if held is None else held
+    total = ND_PREFILL + steps
+    fwd_log, pre_log, dec_logs = [], [], []
+    with _routing_log(fwd_log):
+        hidden, _ = model.forward(params, cfg, batch)
+    cdt = layers.dtype_of(cfg.compute_dtype)
+    full = layers.unembed(model.unembed_table(params, cfg),
+                          hidden[:, ND_PREFILL - 1:], cdt).to(torch.float32)
+    del hidden
+    pre = {k: (v[:, :ND_PREFILL] if k in ("tokens", "embeds") else v)
+           for k, v in batch.items()}
+    with _routing_log(pre_log):
+        state, logits = model.prefill(params, cfg, pre, cache_len=total)
+    got = [logits.float()]
+    for pos in range(ND_PREFILL, total):
+        log = []
+        with _routing_log(log):
+            logits, state = model.decode_step(params, cfg, state,
+                                              _step_input(batch, pos), pos)
+        dec_logs.append(log)
+        got.append(logits.float())
+    del state
+    stages = _rounded_stages(cfg)
+    rel_limit = stages ** 0.5 * unit
+    peak = float(full.abs().max())
+    limit = 4.0 * rel_limit * peak
+    b = full.shape[0]
+    flipped = torch.zeros((b, len(got)), dtype=torch.bool,
+                          device=full.device)
+    moe_note = ""
+    if fwd_log:
+        # The prefill and decode routing over the forward's positions, per
+        # layer; row j of the logits is position ND_PREFILL - 1 + j.
+        other = [(torch.cat([pre_log[layer][0]]
+                            + [log[layer][0] for log in dec_logs], dim=2),
+                  torch.cat([pre_log[layer][1]]
+                            + [log[layer][1] for log in dec_logs], dim=1))
+                 for layer in range(len(fwd_log))]
+        apart, gaps = _near_ties(torch, fwd_log, other,
+                                 cfg.experts_per_token, 8.0 * rel_limit)
+        shown = [tuple(round(x, 5) if isinstance(x, float) else x for x in g)
+                 for g in gaps]
+        flipped = apart[:, ND_PREFILL - 1:]
+        moe_note = (f"; MoE tokens routed apart: {len(gaps)} of "
+                    f"{apart.numel()}, each a near tie at its first such "
+                    f"layer (lane, position, layer, router gap forward, "
+                    f"decode, max|delta|, limit: "
+                    f"{shown})")
+    diffs, rels = [], []
+    for j, logits in enumerate(got):
+        gap = logits - full[:, j]
+        diffs.append(gap.abs().amax(dim=-1))
+        rels.append(gap.norm(dim=-1) / full[:, j].norm(dim=-1))
+    diffs, rels = torch.stack(diffs, 1), torch.stack(rels, 1)
+    kept = ~flipped
+    kept[:, held + 1:] = False
+    worst = float(diffs[kept].max()) if bool(kept.any()) else float("nan")
+    worst_rel = float(rels[kept].max()) if bool(kept.any()) else float("nan")
+    n_flipped = int(flipped.sum())
+    per_step = diffs.where(~flipped, 0.0).amax(0).tolist()
+    beyond = (f"; past step {held} (printed, not held): max|diff| "
+              f"{max(per_step[held + 1:]):.6g}, relative L2 "
+              f"{float(rels[:, held + 1:].max()):.6g}"
+              if steps > held else "")
+    _log(f"[nd] {label}: decode against forward ({ND_PREFILL}-token "
+         f"prefill, {steps} decode steps, {cfg.compute_dtype}, K = {stages} "
+         f"rounded stages, u = 2^{math.log2(unit):.0f}): to step {held} "
+         f"max|diff| {worst:.6g}, limit {limit:.6g} (max|logit| "
+         f"{peak:.4f}), relative L2 {worst_rel:.6g} (sqrt(K) u = "
+         f"{rel_limit:.6g}){beyond}; per step max|diff| "
+         f"{[float(f'{x:.5g}') for x in per_step]}"
+         + (f"; {n_flipped} of {flipped.numel()} rows left out (max|diff| "
+            f"there {float(diffs[flipped].max()) if n_flipped else 0.0:.5f})"
+            + moe_note if fwd_log else ""))
+    if 4 * n_flipped > flipped.numel():
+        raise AssertionError(f"{label}: {n_flipped} rows routed apart")
+    if not worst <= limit:
+        raise AssertionError(f"{label}: decode drifted from the forward "
+                             f"past its limit")
+    return worst / limit, worst_rel / rel_limit, per_step
+
+
+def _nd_probes(torch, np, dev, smi, cfg, params, counters, errs, prompts):
+    """zamba2 served with taps into a 2-tenant gateway through the bridge
+    (kernel 4), the served counters against the offline builds (kernel 1),
+    a probe fit each (kernel 2) and ``fit_probes`` (kernel 6) against
+    ``fit_probe_many``: phase 19's checks, through its helpers. Each kernel
+    is held bit for bit against its plain version. Returns the launches of
+    that path."""
+    from repro_torch.core import dfo, lsh, probes
+    from repro_torch.device import generator
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sketch_query as query_kernel
+    from repro_torch.kernels import storm_sketch as insert_kernel
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.storm_gateway import StormGateway
+    from repro_torch.telemetry import TapConfig, TelemetryBridge
+
+    d = cfg.d_model
+    tap = TapConfig(cfg.name, layers=ND_TAPS, target=LM_TARGET)
+    hash_params = lsh.init_srp(generator(SEED + 211, dev), LM_HASH_ROWS,
+                               LM_PLANES, d + 3, device=dev)
+    pconf = probes.ProbeConfig(rows=LM_HASH_ROWS, planes=LM_PLANES)
+    gw = StormGateway(hash_params, tenants=LM_TENANTS,
+                      ingest_slots=LM_INGEST_SLOTS, device=dev)
+    bridge = TelemetryBridge(gw, pconf, window=LM_WINDOW)
+    sink = bridge.register(tap, cfg)
+    seen = []
+
+    def capture(batch):
+        seen.append(batch)
+        sink(batch)
+
+    for c in counters.values():
+        c.launches = 0
+    eng = ServeEngine(params, cfg, slots=ND_SLOTS, cache_len=ND_CACHE,
+                      taps=tap, tap_sink=capture, device=dev)
+    served = eng.run([Request(rid=i, prompt=p, max_new_tokens=ND_NEW)
+                      for i, p in enumerate(prompts)])
+    bridge.flush()
+    offline, n_served = _served_against_offline(
+        torch, np, dev, cfg, bridge, ND_TAPS, seen, hash_params, pconf, errs,
+        cfg.name)
+    lm_dfo = dataclasses.replace(probes._PROBE_DFO, learning_rate=LM_PROBE_LR)
+    fit_kw = dict(dfo_config=lm_dfo, l2=LM_PROBE_L2, device=dev)
+    steps, k = lm_dfo.steps, lm_dfo.num_queries
+    dirs = dfo.sphere_directions(generator(SEED + 212, dev), steps, 1, k,
+                                 d + 1, dev)
+    fits = [probes.fit_probe(None, st, d, directions=dirs, **fit_kw)
+            for st in offline]
+    dirs_many = dfo.sphere_directions(generator(SEED + 213, dev), steps,
+                                      len(ND_TAPS), k, d + 1, dev)
+    live = bridge.fit_probes(None, directions=dirs_many, **fit_kw)
+    torch.cuda.synchronize()
+    launches = _path_launches(counters, ND_TAPS, steps, gw.ticks, cfg.name)
+    _fit_probes_against_offline(torch, d, live, offline, dirs_many, fit_kw,
+                                cfg.name)
+    # Kernel 2 on a fit's first steps, kernel 4 on a tick's shape and
+    # kernels 2 and 6 on the served bank, each against its plain version.
+    short_kw = dict(fit_kw, dfo_config=dataclasses.replace(
+        lm_dfo, steps=LM_PLAIN_STEPS))
+    one = probes.fit_probe(None, offline[-1], d,
+                           directions=dirs[:LM_PLAIN_STEPS], **short_kw)
+    with plain_versions():
+        plain_one = probes.fit_probe(None, offline[-1], d,
+                                     directions=dirs[:LM_PLAIN_STEPS],
+                                     **short_kw)
+    if not (torch.equal(one.theta, plain_one.theta)
+            and torch.equal(one.losses, plain_one.losses)):
+        raise AssertionError(f"{cfg.name}: the fit's first steps through "
+                             f"kernel 2 differ from the plain versions'")
+    w = ops.from_lsh_params(hash_params)
+    feats, ys = _served_rows(torch, np, dev, seen)
+    zs, _ = probes.probe_rows(feats[-1], ys, pconf,
+                              moments=bridge.moments_of(cfg.name,
+                                                        ND_TAPS[-1]))
+    zb = torch.zeros((LM_TENANTS, LM_INGEST_SLOTS, zs.shape[1]), device=dev)
+    mb = torch.zeros((LM_TENANTS, LM_INGEST_SLOTS), device=dev)
+    take = min(LM_WINDOW, zs.shape[0] // LM_TENANTS)
+    zb[:, :take] = zs[:LM_TENANTS * take].reshape(LM_TENANTS, take, -1)
+    mb[:, :take] = 1.0
+    _held(torch, errs, "paired_hash_histogram_banked",
+          insert_kernel.paired_hash_histogram_banked(zb, w, mb),
+          ref.paired_hash_histogram_banked(zb, w, mb),
+          f"kernel 4 at d = {d + 3}")
+    bank = gw.bank.counts
+    th = torch.randn(LM_QUERY_M[1], d + 1,
+                     generator=generator(SEED + 214, dev), device=dev)
+    q = lsh.augment_query(lsh.normalize_query(th)).contiguous()
+    idx = (torch.arange(q.shape[0], device=dev, dtype=torch.int32)
+           * LM_TENANTS // q.shape[0])
+    _held(torch, errs, "sketch_query",
+          query_kernel.sketch_query(q, w, bank[0]),
+          ref.sketch_query(q, w, bank[0]), f"kernel 2 at d = {d + 3}")
+    _held(torch, errs, "sketch_query_banked",
+          query_kernel.sketch_query_banked(q, w, bank, idx),
+          ref.sketch_query_banked(q, w, bank, idx),
+          f"kernel 6 at d = {d + 3}")
+    _log(f"[nd] {cfg.name} served with taps (cycles {ND_TAPS}, target "
+         f"{LM_TARGET}) into a {LM_TENANTS}-tenant gateway at d = {d + 3}: "
+         f"{len(served)} requests, {n_served} tapped lane-steps, "
+         f"{bridge.flushes} flushes, {gw.ticks} ticks; the served counters "
+         f"equal sketch_features(moments=frozen) bit for bit; fit_probe "
+         f"(lr {LM_PROBE_LR}) sketch loss "
+         f"{[round(float(f.losses[0]), 6) for f in fits]} at step 0, "
+         f"{[round(float(f.fleet_losses[0]), 6) for f in fits]} at the end, "
+         f"|theta| {[round(float(f.theta.norm()), 6) for f in fits]}; "
+         f"fit_probes equals fit_probe_many; kernels 1, 2, 4, 6 bit for bit "
+         f"against their plain versions; launches {launches} | {smi}")
+    if not all(bool(f.theta.any()) for f in fits):
+        raise AssertionError(f"{cfg.name}: the zero guard won a probe fit")
+    return launches
+
+
+def _nd_train(torch, np, dev, smi, cfg):
+    """xlstm-1.3b through ``trainer.train`` with the port's own
+    ``train_step``: ``ND_TRAIN_STEPS`` steps of 2 x 2048 random tokens, no
+    checkpoint; the global gradient norm finite at every step (so every
+    gradient leaf is) and the loss falling. Prints the steady step and
+    model FLOP/s."""
+    from repro_torch.device import generator
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+
+    tcfg = ts.TrainConfig(optimizer=opt_lib.AdamWConfig(
+        learning_rate=ND_TRAIN_LR, warmup_steps=1))
+    gen = torch.Generator().manual_seed(SEED + 215)
+    toks = torch.randint(0, cfg.vocab_size, (ND_BATCH, ND_PREFILL),
+                         generator=gen, dtype=torch.int64).to(torch.int32)
+    batch = {"tokens": toks.to(dev),
+             "labels": torch.roll(toks, -1, dims=1).to(dev)}
+    record = {"ms": [], "grad_norm": []}
+
+    # Phase 20's wrapper: the trainer's step, timed on the host clock to
+    # the sync of reading the loss.
+    def step_fn(state, b):
+        start = time.perf_counter()
+        state, metrics = ts.train_step(state, b, cfg, tcfg)
+        loss = float(metrics["loss"])
+        record["ms"].append(1e3 * (time.perf_counter() - start))
+        record["grad_norm"].append(float(metrics["grad_norm"]))
+        return state, {"loss": loss}
+
+    torch.cuda.reset_peak_memory_stats()
+    report = trainer.train(
+        generator(SEED + 215, dev), cfg, tcfg,
+        trainer.LoopConfig(total_steps=ND_TRAIN_STEPS, ckpt_dir=None),
+        lambda step: batch, step_fn=step_fn, device=dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = report.losses
+    tokens = ND_BATCH * ND_PREFILL
+    steady = statistics.median(record["ms"][1:])
+    flops = 6 * cfg.param_count() * tokens / (steady / 1e3)
+    _log(f"[nd] {cfg.name} trained {report.steps_run} steps of "
+         f"{ND_BATCH} x {ND_PREFILL} tokens through train_step (AdamW lr "
+         f"{ND_TRAIN_LR}, warmup 1, microbatches {tcfg.microbatches}, "
+         f"grad_dtype {tcfg.optimizer.grad_dtype}, no checkpoint): losses "
+         f"{[round(x, 4) for x in losses]}; global gradient norm "
+         f"{[round(x, 4) for x in record['grad_norm']]}; step ms "
+         f"{[round(x, 1) for x in record['ms']]} | {smi}")
+    _log(f"[time] nd train step ({cfg.name}, {ND_BATCH} x {ND_PREFILL} "
+         f"tokens, remat {cfg.remat_policy!r}, AdamW): steady {steady:.1f} "
+         f"ms (median of steps 2-{len(record['ms'])}, host clock ending in "
+         f"the loss read), {tokens / steady * 1e3:.0f} tokens/s, model "
+         f"FLOP/s 6 N T / t = {flops / 1e12:.1f} T "
+         f"({100 * flops / PEAK_BF16_FLOPS:.2f}% of the bf16 peak); peak "
+         f"max_memory_allocated {peak:.2f} GiB | {smi}")
+    if not (report.steps_run == ND_TRAIN_STEPS
+            and all(np.isfinite(record["grad_norm"]))
+            and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name}: the loss did not fall or a "
+                             f"gradient was not finite")
+
+
+def _nd_prefill_profile(torch, arch, prefill, smi):
+    """One more prefill under the profiler: its wall, device busy time and
+    device time by kind of kernel (phase 20's kinds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - start)
+    events = _device_events(prof)
+    busy = sum(us for _, us in events) / 1e3
+    kinds = {}
+    for name, us in events:
+        kind = _train_kernel_kind(name)
+        ms, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + us / 1e3, n + 1)
+    _log(f"[time] nd {arch} prefill under the profiler: {wall:.1f} ms wall, "
+         f"{busy:.1f} ms device ({100 * busy / wall:.1f}% busy, "
+         f"{len(events)} launches): " + "; ".join(
+             f"{k} {ms:.1f} ms ({n})" for k, (ms, n) in sorted(
+                 kinds.items(), key=lambda kv: -kv[1][0])) + f" | {smi}")
+
+
+def _f32_witness(torch, dev, cfg, bf16_steps):
+    """The decode check on an f32 copy of ``cfg`` at full width (the bf16
+    model's weights before their rounding, its inputs), all
+    ``ND_DECODE_RECURRENT`` steps held at u = 2^-16: 2^-8 of the bf16
+    limit. A decode fault would show at the bf16 size here too. Prints
+    both runs' max|diff| per ``ND_DECODE`` steps and the log2 of their
+    ratio."""
+    import gc
+
+    from repro_torch.device import generator
+    from repro_torch.models import model
+
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    params = model.init_params(generator(SEED + 21, dev), f32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    batch = _nd_inputs(torch, f32, gen, dev, ND_BATCH,
+                       ND_PREFILL + ND_DECODE_RECURRENT)
+    shares = _decode_check(torch, f32, params, batch, f"{cfg.name} in f32",
+                           ND_DECODE_RECURRENT, held=ND_DECODE_RECURRENT,
+                           unit=2.0 ** -16)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    block = ND_DECODE
+    blocks = lambda xs: [max(xs[i:i + block])
+                         for i in range(1, len(xs), block)]
+    b16, b32 = blocks(bf16_steps), blocks(shares[2])
+    ratio = [round(math.log2(a / b), 2) if a and b else None
+             for a, b in zip(b16, b32)]
+    _log(f"[nd] {cfg.name} decode drift, max|diff| per {block} steps: bf16 "
+         f"{[float(f'{x:.4g}') for x in b16]}, f32 "
+         f"{[float(f'{x:.4g}') for x in b32]}, log2 of their ratio "
+         f"{ratio}; the f32 run at {shares[0]:.4f} of its limit (2^-8 of "
+         f"bf16's) over all {len(shares[2]) - 1} steps")
+
+
+def nondense_phase(torch, np, dev, smi, counters, errs):
+    """Phase 21: the six non-dense LMs at their published widths in bf16.
+    Returns the launches of its main path (zamba2's taps into probes)."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.device import generator
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import tree as tree_lib
+
+    t21 = time.perf_counter()
+    launches = {}
+    rng = np.random.default_rng(SEED + 21)
+    summary = []
+    for arch in ND_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        t_model = time.perf_counter()
+        full = registry.get_config(arch)
+        cfg = (dataclasses.replace(full, num_layers=ND_LAYERS[arch])
+               if arch in ND_LAYERS else full)
+        start = time.perf_counter()
+        params = model.init_params(generator(SEED + 21, dev), cfg,
+                                   device=dev)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - start
+        n_params = model.param_count(params)
+        if n_params != cfg.param_count():
+            raise AssertionError(f"{arch}: {n_params} parameters, the config "
+                                 f"counts {cfg.param_count()}")
+        reduced = (f"; reduced: {cfg.num_layers} of {full.num_layers} "
+                   f"layers (full depth: {full.param_count()} parameters, "
+                   f"{2 * full.param_count() / 2**30:.1f} GiB of bf16 "
+                   f"weights)" if cfg is not full else "")
+        _log(f"[nd] {arch}: {cfg.num_layers} layers of {cfg.cycle}, d_model "
+             f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_dtype}: "
+             f"{n_params} parameters ({2 * n_params / 2**30:.2f} GiB), built "
+             f"in {built_s:.2f} s{reduced}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        steps = (ND_DECODE_RECURRENT if {"mlstm", "mamba"} & set(cfg.cycle)
+                 else ND_DECODE)
+        batch = _nd_inputs(torch, cfg, gen, dev, ND_BATCH,
+                           ND_PREFILL + steps)
+        pre = {k: (v[:, :ND_PREFILL] if k in ("tokens", "embeds") else v)
+               for k, v in batch.items()}
+
+        # Prefill at the published configuration: a warm-up, then timed.
+        model.prefill(params, cfg, pre, cache_len=ND_PREFILL)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _, last = model.prefill(params, cfg, pre, cache_len=ND_PREFILL)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - start
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError(f"{arch}: prefill logits not finite")
+        del last
+        _nd_prefill_profile(torch, arch, lambda: model.prefill(
+            params, cfg, pre, cache_len=ND_PREFILL), smi)
+
+        # Decode against the forward (the MoE pair without drops).
+        check = (dataclasses.replace(
+            cfg, moe_capacity_factor=float(cfg.num_experts))
+            if cfg.is_moe else cfg)
+        shares = _decode_check(torch, check, params, batch, arch, steps)
+        del batch, pre
+
+        # Decode steps at 4 lanes from zeroed states, timed.
+        state = model.init_decode_state(cfg, ND_SLOTS, ND_CACHE, dev)
+        step_in = _nd_inputs(torch, cfg, gen, dev, ND_SLOTS,
+                             2 + ND_TIMED_STEPS)
+        for pos in range(2):
+            _, state = model.decode_step(params, cfg, state,
+                                         _step_input(step_in, pos), pos)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for pos in range(2, 2 + ND_TIMED_STEPS):
+            logits, state = model.decode_step(params, cfg, state,
+                                              _step_input(step_in, pos), pos)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - start) / ND_TIMED_STEPS
+        del state, step_in, logits
+
+        # Two fresh engines, token inputs: equal streams; the 8 requests
+        # over 4 slots re-admit every lane.
+        prompts = [rng.integers(0, cfg.vocab_size, size=ND_PROMPT).astype(
+            np.int32) for _ in range(ND_REQUESTS)]
+        engine_note = "not served by the engine (fed embeds)"
+        if not cfg.embeddings_provided:
+            streams = []
+            for _ in range(2):
+                eng = ServeEngine(params, cfg, slots=ND_SLOTS,
+                                  cache_len=ND_CACHE, device=dev)
+                out = eng.run([Request(rid=i, prompt=p,
+                                       max_new_tokens=ND_NEW)
+                               for i, p in enumerate(prompts)])
+                streams.append({c.rid: c.tokens for c in out})
+            if streams[0] != streams[1] or sorted(streams[0]) != list(
+                    range(ND_REQUESTS)) or eng.resets != ND_REQUESTS:
+                raise AssertionError(f"{arch}: two fresh engines served "
+                                     f"different streams")
+            engine_note = (f"two fresh engines served equal streams "
+                           f"({eng.steps} steps, {eng.resets} lane resets)")
+            del eng, out  # the engine holds the parameters
+
+        # Decode state bytes a lane.
+        state_bytes = []
+        for cache in ND_STATE_CACHES:
+            st = model.init_decode_state(cfg, 1, cache, dev)
+            state_bytes.append(sum(t.numel() * t.element_size()
+                                   for t in tree_lib.leaves(st)))
+            del st
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tokens = ND_BATCH * ND_PREFILL
+        _log(f"[time] nd {arch}: {n_params} parameters; prefill "
+             f"{ND_BATCH} x {ND_PREFILL} in {1e3 * prefill_s:.1f} ms "
+             f"({tokens / prefill_s:.0f} tokens/s); decode step at "
+             f"{ND_SLOTS} lanes {step_ms:.3f} ms; decode state a lane "
+             f"{state_bytes[0]} B at cache {ND_STATE_CACHES[0]}, "
+             f"{state_bytes[1]} B at {ND_STATE_CACHES[1]}; peak "
+             f"max_memory_allocated {peak:.2f} GiB ({held:.2f} GiB held "
+             f"before the model); decode max|diff| at "
+             f"{shares[0]:.3f} of its limit, relative L2 at {shares[1]:.3f} "
+             f"of sqrt(K) 2^-8; "
+             f"{engine_note}{reduced} | {smi}")
+        summary.append((arch, n_params, tokens / prefill_s, step_ms,
+                        state_bytes, peak))
+        if arch == ND_TAP_ARCH:
+            launches = _nd_probes(torch, np, dev, smi, cfg, params,
+                                  counters, errs, prompts)
+        del params
+        if arch == ND_WITNESS_ARCH:
+            _f32_witness(torch, dev, cfg, shares[2])
+        if arch == ND_TRAIN_ARCH:
+            gc.collect()
+            torch.cuda.empty_cache()
+            _nd_train(torch, np, dev, smi, cfg)
+        _log(f"[nd] {arch} took {time.perf_counter() - t_model:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"[nd] phase 21 took {time.perf_counter() - t21:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -3669,6 +4332,12 @@ def main() -> int:
 
     # -- 20. training: gemma3-1b through the trainer, resumed and served ---
     train_phase(torch, np, dev, smi)
+
+    # -- 21. the six non-dense LMs; zamba2 tapped into probes ---------------
+    for name, n in nondense_phase(torch, np, dev, smi, counters,
+                                  errs).items():
+        if name in launches:
+            launches[name] += n
 
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"

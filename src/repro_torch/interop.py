@@ -35,6 +35,7 @@ from repro_torch.models import layers as model_layers
 from repro_torch.models import model as lm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ssm import MambaState, RecurrentState
 from repro_torch.train import checkpoint
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as ts
@@ -179,21 +180,16 @@ def bank_to_numpy(bank: SketchBank) -> tuple[np.ndarray, np.ndarray]:
     return to_numpy(bank.counts), to_numpy(bank.n)
 
 
-def _tensor_of(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
-    """A numpy array (bf16 ones included, through f32: exact) as ``dtype``."""
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dtype)
-
-
 def _f32(t: torch.Tensor) -> np.ndarray:
     return t.detach().to(torch.float32).cpu().numpy()
 
 
 def lm_params(tree, cfg: ModelConfig, device: DeviceLike = None) -> dict:
     """The reference's parameter tree (nested dicts of arrays, ``blocks``
-    stacked on a leading ``num_cycles`` axis) -> the port's, in
-    ``cfg.param_dtype`` on ``device``. Weights keep their ``(in, out)``
-    layout. Raises ``NotImplementedError`` for a model the port cannot
-    build."""
+    stacked on a leading ``num_cycles`` axis; ``shared`` unstacked) -> the
+    port's, in ``cfg.param_dtype`` on ``device``. Weights keep their ``(in,
+    out)`` layout, expert stacks their ``(E, in, out)``. Raises
+    ``NotImplementedError`` for a model the port cannot build."""
     lm.check_supported(cfg)
     return _unstack(tree, cfg, model_layers.dtype_of(cfg.param_dtype),
                     resolve_device(device))
@@ -213,51 +209,90 @@ def _leaf(a, dtype: Optional[torch.dtype], dev: torch.device) -> torch.Tensor:
     return t.to(dev, dtype or t.dtype, copy=True)
 
 
+def _leaves_of(node, dtype: Optional[torch.dtype], dev: torch.device):
+    """A subtree of dicts with every leaf through :func:`_leaf`."""
+    if isinstance(node, Mapping):
+        return {k: _leaves_of(v, dtype, dev) for k, v in node.items()}
+    return _leaf(node, dtype, dev)
+
+
 def _unstack(tree, cfg: ModelConfig, dtype: Optional[torch.dtype],
              dev: torch.device) -> dict:
     """A reference parameter-shaped tree (``blocks`` stacked on a leading
-    ``num_cycles`` axis) as the port's (a list of cycles)."""
+    ``num_cycles`` axis) as the port's (a list of cycles). A position
+    without leaves (``shared_attn``'s ``{}``, which a checkpoint's leaf
+    paths do not name) is ``{}``."""
     def cycle(node, c):
         if isinstance(node, Mapping):
             return {k: cycle(v, c) for k, v in node.items()}
         return _leaf(node[c], dtype, dev)
 
-    out = {k: _leaf(v, dtype, dev) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [cycle(tree["blocks"], c) for c in range(cfg.num_cycles)]
+    out = {k: _leaves_of(v, dtype, dev) for k, v in tree.items()
+           if k != "blocks"}
+    blocks = tree["blocks"]
+    out["blocks"] = [{f"pos{i}": cycle(blocks.get(f"pos{i}", {}), c)
+                      for i in range(len(cfg.cycle))}
+                     for c in range(cfg.num_cycles)]
     return out
 
 
-def _stack_cycles(nodes) -> dict:
+def _to_numpy_tree(node):
+    if isinstance(node, dict):
+        return {k: _to_numpy_tree(v) for k, v in node.items()}
+    return _f32(node)
+
+
+def _stack_cycles(nodes):
+    """The cycles' trees (dicts, state tuples) as one tree of float32 arrays
+    stacked on a leading ``num_cycles`` axis; a state tuple becomes a plain
+    tuple."""
     if isinstance(nodes[0], dict):
         return {k: _stack_cycles([n[k] for n in nodes]) for k in nodes[0]}
+    if isinstance(nodes[0], tuple):
+        return tuple(_stack_cycles([n[j] for n in nodes])
+                     for j in range(len(nodes[0])))
     return np.stack([_f32(n) for n in nodes])
 
 
 def lm_params_to_numpy(params: dict) -> dict:
-    """Inverse of :func:`lm_params`: a float32 numpy tree with ``blocks``
-    stacked on a leading ``num_cycles`` axis."""
-    out = {k: _f32(v) for k, v in params.items() if k != "blocks"}
+    """Inverse of :func:`lm_params`: a float32 numpy tree (bf16 values
+    exactly) with ``blocks`` stacked on a leading ``num_cycles`` axis."""
+    out = {k: _to_numpy_tree(v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = _stack_cycles(params["blocks"])
     return out
 
 
+def _block_state(kind: str, node, c: int, dev: torch.device):
+    """Cycle ``c`` of one block's stacked reference state (a named tuple or
+    plain tuple of arrays), each leaf in its own dtype: ``(k, v)`` for the
+    attention kinds, ``(s, n)`` for mlstm, ``((s, n), conv)`` for mamba."""
+    leaf = lambda a: _leaf(np.asarray(a)[c], None, dev)
+    if kind == "mlstm":
+        return RecurrentState(*(leaf(a) for a in node))
+    if kind == "mamba":
+        rec, conv = node
+        return MambaState(ssm=RecurrentState(*(leaf(a) for a in rec)),
+                          conv=leaf(conv))
+    return KVCache(*(leaf(a) for a in node))
+
+
 def decode_state(tree, cfg: ModelConfig, device: DeviceLike = None) -> list:
-    """The reference's decode state (``{"pos{i}": (k, v)}``, each ``(C, B,
-    KH, T, D)``) -> the port's list of cycles of :class:`KVCache`, in
-    ``cfg.compute_dtype`` on ``device``."""
+    """The reference's decode state (``{"pos{i}": state}``, each leaf
+    stacked on a leading ``num_cycles`` axis) -> the port's list of cycles
+    of :class:`KVCache`, :class:`RecurrentState` and :class:`MambaState`
+    on ``device``, every leaf in its own dtype (a bf16 model's caches are
+    bf16, the recurrences' states f32, a Mamba conv history either)."""
     dev = resolve_device(device)
-    cdt = model_layers.dtype_of(cfg.compute_dtype)
-    return [{name: KVCache(*(_tensor_of(a[c], cdt, dev) for a in kv))
-             for name, kv in tree.items()}
+    return [{f"pos{i}": _block_state(kind, tree[f"pos{i}"], c, dev)
+             for i, kind in enumerate(cfg.cycle)}
             for c in range(cfg.num_cycles)]
 
 
 def decode_state_to_numpy(state: list) -> dict:
-    """Inverse of :func:`decode_state`: ``{"pos{i}": (k, v)}`` float32
-    arrays stacked on a leading ``num_cycles`` axis."""
-    return {name: tuple(np.stack([_f32(cycle[name][j]) for cycle in state])
-                        for j in range(2))
-            for name in state[0]}
+    """Inverse of :func:`decode_state`: ``{"pos{i}": (k, v) | (s, n) |
+    ((s, n), conv)}`` of float32 arrays (bf16 values exactly) stacked on a
+    leading ``num_cycles`` axis."""
+    return _stack_cycles(state)
 
 
 def _field(node, name: str):

@@ -18,7 +18,7 @@ from __future__ import annotations
 import argparse
 import os
 import tempfile
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,14 +32,22 @@ from repro_torch.train import trainer
 DATA_SEED = 11
 
 
-def data_for_step(step: int, batch: int, seq: int, vocab: int
+def data_for_step(step: int, batch: int, seq: int, vocab: int,
+                  cross: Optional[Tuple[int, int]] = None
                   ) -> Dict[str, torch.Tensor]:
     """Random tokens and their next-token labels, the same for a step on
-    every run (drawn on the CPU)."""
+    every run (drawn on the CPU). ``cross = (tokens, d_model)`` adds stub
+    frontend states ``cross_states (batch, tokens, d_model)``, normals
+    times 0.1, for a model with cross-attention blocks (the reference's
+    launcher feeds tokens alone, which its cross-attention cannot take)."""
     gen = torch.Generator().manual_seed((DATA_SEED << 32) | step)
     toks = torch.randint(0, vocab, (batch, seq), generator=gen,
                          dtype=torch.int64).to(torch.int32)
-    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    out = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    if cross is not None:
+        out["cross_states"] = 0.1 * torch.randn((batch,) + tuple(cross),
+                                                generator=gen)
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
@@ -68,10 +76,12 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     loop = trainer.LoopConfig(total_steps=args.steps,
                               ckpt_every=max(10, args.steps // 3),
                               ckpt_dir=args.ckpt_dir)
+    cross = ((cfg.cross_attn_tokens, cfg.d_model)
+             if "cross_attn" in cfg.cycle else None)
     report = trainer.train(
         generator(0, dev), cfg, tcfg, loop,
         lambda step: data_for_step(step, args.batch, args.seq,
-                                   cfg.vocab_size),
+                                   cfg.vocab_size, cross),
         device=dev)
     line = (f"arch={cfg.name} steps={report.steps_run} "
             f"final_loss={report.final_loss:.4f} "

@@ -1,7 +1,7 @@
 """Attention: GQA with RoPE, qk-norm, QKV bias, sliding-window / local
-masking, memory-bounded chunked softmax and one-token decode against a KV
-cache (port of ``repro.models.attention``; ``cross_attention`` is not
-ported yet).
+masking, memory-bounded chunked softmax, one-token decode against a KV
+cache and non-causal cross-attention onto frontend states (port of
+``repro.models.attention``).
 
 Sequence attention follows the reference's math: a loop over query chunks
 with an online softmax over key/value chunks, so the ``(S, S)`` score matrix
@@ -200,6 +200,38 @@ def apply_attention(
                            head_dim, rope_theta, compute_dtype)
     out = chunked_attention(q, k, v, chunk=chunk, causal=True, window=window)
     b, s = x.shape[:2]
+    out = out.reshape(b, s, num_heads * head_dim)
+    return out @ params["wo"].to(compute_dtype)
+
+
+def cross_attention(
+    params: Params,
+    x: Tensor,            # (B, S, d) text stream
+    kv_states: Tensor,    # (B, T, d) frontend-provided embeddings
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    chunk: int,
+    compute_dtype: torch.dtype,
+) -> Tensor:
+    """Non-causal cross-attention onto stub image or frame embeddings:
+    queries from ``x``, keys and values from ``kv_states``, no RoPE,
+    ``q_norm``/``k_norm`` when the block has them."""
+    b, s, _ = x.shape
+    t = kv_states.shape[1]
+    xc = x.to(compute_dtype)
+    kvc = kv_states.to(compute_dtype)
+    q = (xc @ params["wq"].to(compute_dtype)).reshape(b, s, num_heads,
+                                                      head_dim)
+    k = (kvc @ params["wk"].to(compute_dtype)).reshape(b, t, num_kv_heads,
+                                                       head_dim)
+    v = (kvc @ params["wv"].to(compute_dtype)).reshape(b, t, num_kv_heads,
+                                                       head_dim)
+    if "q_norm" in params:
+        q = layers.rms_norm(q, params["q_norm"])
+        k = layers.rms_norm(k, params["k_norm"])
+    out = chunked_attention(q, k, v, chunk=chunk, causal=False, window=None)
     out = out.reshape(b, s, num_heads * head_dim)
     return out @ params["wo"].to(compute_dtype)
 

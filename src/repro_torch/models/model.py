@@ -1,13 +1,18 @@
-"""Model assembly for the dense family: sequence forward (with remat for
-training), the training loss, prefill, decode and activation taps (port of
-``repro.models.model``).
+"""Model assembly: init, the sequence forward (with remat for training),
+the training loss, prefill, decode and activation taps for every block kind
+of the reference (port of ``repro.models.model``).
 
 Parameters are a tree of dicts, laid out as the reference's except that the
 per-cycle blocks are a list (one dict per cycle, ``blocks[c]["pos{i}"]``)
 instead of arrays stacked on a leading ``num_cycles`` axis: the layer loop
 indexes nothing per step. ``interop.lm_params`` unstacks the reference's
-tree once. Decode state is the same kind of list: ``state[c]["pos{i}"]`` is
-that block's :class:`~.attention.KVCache`.
+tree once. A ``shared_attn`` position holds ``{}``: its attention and MLP
+live once in ``params["shared"]`` and every invocation applies them. Decode
+state is the same kind of list: ``state[c]["pos{i}"]`` is that block's
+:class:`~.attention.KVCache` (attention kinds; a ``cross_attn`` cache holds
+the frontend states' projected keys and values),
+:class:`~.ssm.RecurrentState` (``mlstm``) or :class:`~.ssm.MambaState`
+(``mamba``).
 
 Public entry points:
   * ``init_params(gen, cfg, device)``
@@ -18,10 +23,11 @@ Public entry points:
   * ``decode_step(params, cfg, state, inputs, pos, tap_layers=None)``
   * ``forward_taps(params, cfg, batch, tap_layers)`` -> (hidden, taps)
 
-``batch`` is a dict with ``tokens (B, S)`` (and, for the loss, ``labels
-(B, S)`` and an optional ``loss_mask``). Only the block kinds ``attn``
-and ``local_attn`` without experts are ported; building any other model
-raises ``NotImplementedError``.
+``batch`` is a dict with ``tokens (B, S)`` or ``embeds (B, S, d)`` (the
+stub frontends' frame or patch embeddings), ``cross_states (B, T, d)`` for
+the cross-attention blocks, and, for the loss, ``labels (B, S)`` and an
+optional ``loss_mask``. ``aux`` is the sum over MoE layers of the Switch
+load-balancing loss (0 without experts).
 """
 
 from __future__ import annotations
@@ -34,35 +40,31 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.device import DeviceLike, generator as make_generator
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-_PORTED_KINDS = ("attn", "local_attn")
+_ATTN_KINDS = ("attn", "local_attn", "cross_attn", "shared_attn")
+_SELF_ATTN_KINDS = ("attn", "local_attn", "shared_attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port cannot build yet."""
-    kinds = sorted(set(cfg.cycle) - set(_PORTED_KINDS))
-    missing = []
-    if kinds:
-        missing.append(f"block kinds {kinds}")
-    if cfg.is_moe:
-        missing.append(f"{cfg.num_experts} experts")
-    if cfg.embeddings_provided:
-        missing.append("frontend embeddings")
-    if missing:
+    if cfg.sequence_parallel:
         raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(missing)}: the port serves the "
-            f"dense attention family only; ROADMAP Queue 1 item 12c "
-            f"(models/moe.py, models/ssm.py, cross_attn and embeds inputs) "
-            f"ports the rest")
+            f"{cfg.name} asks for sequence_parallel: the recurrence's "
+            f"cross-device prefix scan (ssm.glr_shardmapped) comes with the "
+            f"LM's sharding, ROADMAP Queue 1 item 12d")
 
 
 def _window(kind: str, cfg: ModelConfig) -> Optional[int]:
     return cfg.local_window if kind == "local_attn" else cfg.sliding_window
+
+
+def _zeros(n: int, dtype: torch.dtype, dev: torch.device) -> Tensor:
+    return torch.zeros((n,), dtype=dtype, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -70,22 +72,40 @@ def _window(kind: str, cfg: ModelConfig) -> Optional[int]:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def _mlp_params(gen: torch.Generator, d: int, d_ff: int,
+                dtype: torch.dtype) -> Params:
+    return {
+        "gate": layers.normal((d, d_ff), d ** -0.5, dtype, gen),
+        "up": layers.normal((d, d_ff), d ** -0.5, dtype, gen),
+        "down": layers.normal((d_ff, d), d_ff ** -0.5, dtype, gen),
+    }
+
+
+def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
     pdt = layers.dtype_of(cfg.param_dtype)
     d, dev = cfg.d_model, gen.device
-    p: Params = {
-        "pre_norm": torch.zeros((d,), dtype=pdt, device=dev),
-        "attn": attention.init_attention(
+    if kind == "shared_attn":
+        return {}  # the parameters live in params["shared"]
+    p: Params = {"pre_norm": _zeros(d, pdt, dev)}
+    if kind in _ATTN_KINDS:
+        p["attn"] = attention.init_attention(
             gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            cfg.qkv_bias, cfg.qk_norm, pdt),
-    }
-    if cfg.d_ff:
-        p["ffn_norm"] = torch.zeros((d,), dtype=pdt, device=dev)
-        p["mlp"] = {
-            "gate": layers.normal((d, cfg.d_ff), d ** -0.5, pdt, gen),
-            "up": layers.normal((d, cfg.d_ff), d ** -0.5, pdt, gen),
-            "down": layers.normal((cfg.d_ff, d), cfg.d_ff ** -0.5, pdt, gen),
-        }
+            cfg.qkv_bias, cfg.qk_norm, pdt)
+        if cfg.is_moe:
+            p["ffn_norm"] = _zeros(d, pdt, dev)
+            p["moe"] = moe.init_moe(gen, d, cfg.d_ff, cfg.num_experts, pdt)
+        elif cfg.d_ff:
+            p["ffn_norm"] = _zeros(d, pdt, dev)
+            p["mlp"] = _mlp_params(gen, d, cfg.d_ff, pdt)
+    elif kind == "mlstm":
+        p["mlstm"] = ssm.init_mlstm(gen, d, cfg.ssm_expand, cfg.ssm_heads,
+                                    pdt)
+    elif kind == "mamba":
+        p["mamba"] = ssm.init_mamba2(gen, d, cfg.ssm_expand,
+                                     cfg.ssm_state_dim, cfg.ssm_heads,
+                                     cfg.ssm_conv_width, pdt)
+    else:
+        raise ValueError(kind)
     return p
 
 
@@ -103,14 +123,23 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     d = cfg.d_model
     params: Params = {
         "embed": layers.normal((cfg.vocab_size, d), d ** -0.5, pdt, gen),
-        "final_norm": torch.zeros((d,), dtype=pdt, device=dev),
-        "blocks": [{f"pos{i}": _init_block(gen, cfg)
-                    for i in range(len(cfg.cycle))}
+        "final_norm": _zeros(d, pdt, dev),
+        "blocks": [{f"pos{i}": _init_block(gen, kind, cfg)
+                    for i, kind in enumerate(cfg.cycle)}
                    for _ in range(cfg.num_cycles)],
     }
     if not cfg.tie_embeddings:
         params["unembed"] = layers.normal((d, cfg.vocab_size), d ** -0.5,
                                           pdt, gen)
+    if "shared_attn" in cfg.cycle:
+        params["shared"] = {
+            "pre_norm": _zeros(d, pdt, dev),
+            "attn": attention.init_attention(
+                gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                cfg.qkv_bias, cfg.qk_norm, pdt),
+            "ffn_norm": _zeros(d, pdt, dev),
+            "mlp": _mlp_params(gen, d, cfg.d_ff, pdt),
+        }
     return params
 
 
@@ -129,59 +158,111 @@ def param_count(params: Params) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Sequence mode (prefill / offline taps)
+# Sequence mode (training forward / offline taps)
 # ---------------------------------------------------------------------------
 
 
-def _apply_ffn(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Post-attention FFN sublayer."""
+def _apply_ffn(p: Params, x: Tensor, cfg: ModelConfig
+               ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The post-mixer FFN or MoE sublayer. Returns ``(x, aux)``, ``aux``
+    the MoE's load-balancing loss or ``None``."""
     if "ffn_norm" not in p:
-        return x
-    h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    out = layers.mlp(p["mlp"], h, layers.dtype_of(cfg.compute_dtype))
-    return x + out.to(x.dtype)
-
-
-def _apply_block_seq(kind: str, p: Params, x: Tensor, positions: Tensor,
-                     cfg: ModelConfig) -> Tensor:
+        return x, None
     cdt = layers.dtype_of(cfg.compute_dtype)
+    h = layers.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    aux = None
+    if cfg.is_moe and "moe" in p:
+        out, aux = moe.moe_ffn(
+            p["moe"], h, experts_per_token=cfg.experts_per_token,
+            capacity_factor=cfg.moe_capacity_factor, compute_dtype=cdt)
+    else:
+        out = layers.mlp(p["mlp"], h, cdt)
+    return x + out.to(x.dtype), aux
+
+
+def _mixer_seq(kind: str, p: Params, h: Tensor, positions: Tensor,
+               cross: Optional[Tensor], cfg: ModelConfig) -> Tensor:
+    cdt = layers.dtype_of(cfg.compute_dtype)
+    common = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                  head_dim=cfg.head_dim, chunk=cfg.attn_chunk,
+                  compute_dtype=cdt)
+    if kind in _SELF_ATTN_KINDS:
+        return attention.apply_attention(
+            p["attn"], h, positions, rope_theta=cfg.rope_theta,
+            window=_window(kind, cfg), **common)
+    if kind == "cross_attn":
+        if cross is None:
+            raise ValueError(f"{cfg.name} has cross-attention blocks: the "
+                             f"batch needs cross_states")
+        return attention.cross_attention(p["attn"], h, cross, **common)
+    if kind == "mlstm":
+        return ssm.mlstm_block(p["mlstm"], h, cfg.ssm_heads, cfg.attn_chunk,
+                               cdt)
+    if kind == "mamba":
+        return ssm.mamba2_block(p["mamba"], h, cfg.ssm_heads,
+                                cfg.ssm_state_dim, cfg.attn_chunk, cdt)
+    raise ValueError(kind)
+
+
+def _apply_block_seq(kind: str, p: Params, shared: Optional[Params],
+                     x: Tensor, positions: Tensor, cross: Optional[Tensor],
+                     cfg: ModelConfig) -> Tuple[Tensor, Optional[Tensor]]:
+    """One block: pre-norm mixer and residual, then the FFN sublayer.
+    Returns ``(x, aux or None)``."""
+    if kind == "shared_attn":
+        p = shared
     h = layers.rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    out = attention.apply_attention(
-        p["attn"], h, positions, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, window=_window(kind, cfg),
-        chunk=cfg.attn_chunk, compute_dtype=cdt)
+    out = _mixer_seq(kind, p, h, positions, cross, cfg)
     return _apply_ffn(p, x + out.to(x.dtype), cfg)
 
 
 def _embed_batch(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
-                 ) -> Tuple[Tensor, Tensor]:
-    """The batch's token embeddings and their ``(B, S)`` positions."""
+                 ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """The batch's input embeddings (``embeds``, or the tokens' rows of the
+    table), their ``(B, S)`` positions and the cross states, in the compute
+    dtype on the parameters' device. Every sequence-mode entry point starts
+    here, so a config this port cannot run raises here."""
+    check_supported(cfg)
     cdt = layers.dtype_of(cfg.compute_dtype)
-    tokens = batch["tokens"].to(params["embed"].device)
-    x = layers.embed(params["embed"], tokens, cdt)
+    dev = params["embed"].device
+    if "embeds" in batch:
+        x = batch["embeds"].to(dev, cdt)
+    else:
+        x = layers.embed(params["embed"], batch["tokens"].to(dev), cdt)
     b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
-    return x, positions
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+        b, s)
+    cross = batch.get("cross_states")
+    if cross is not None:
+        cross = cross.to(dev, cdt)
+    return x, positions, cross
 
 
-def _cycle(x: Tensor, cycle: Params, positions: Tensor, cfg: ModelConfig
-           ) -> Tensor:
-    """One cycle of blocks over the residual stream."""
+def _cycle(x: Tensor, aux: Tensor, cycle: Params, shared: Optional[Params],
+           positions: Tensor, cross: Optional[Tensor], cfg: ModelConfig
+           ) -> Tuple[Tensor, Tensor]:
+    """One cycle of blocks over the residual stream, adding each MoE
+    layer's auxiliary loss to ``aux``."""
     for i, kind in enumerate(cfg.cycle):
-        x = _apply_block_seq(kind, cycle[f"pos{i}"], x, positions, cfg)
-    return x
+        x, a = _apply_block_seq(kind, cycle[f"pos{i}"], shared, x, positions,
+                                cross, cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _cycles_seq(params: Params, cfg: ModelConfig, x: Tensor,
-                positions: Tensor) -> List[Tensor]:
-    """The residual stream after each cycle (the last is the output)."""
+                positions: Tensor, cross: Optional[Tensor]
+                ) -> Tuple[List[Tensor], Tensor]:
+    """The residual stream after each cycle (the last is the output) and
+    the summed auxiliary loss."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     resid = []
     for cycle in params["blocks"]:
-        x = _cycle(x, cycle, positions, cfg)
+        x, aux = _cycle(x, aux, cycle, params.get("shared"), positions,
+                        cross, cfg)
         resid.append(x)
-    return resid
+    return resid, aux
 
 
 # ---------------------------------------------------------------------------
@@ -219,56 +300,62 @@ def _remat(fn, policy: str):
     return fn
 
 
-def _group(x: Tensor, group: List[Params], positions: Tensor,
-           cfg: ModelConfig) -> Tensor:
+def _group(x: Tensor, aux: Tensor, group: List[Params],
+           shared: Optional[Params], positions: Tensor,
+           cross: Optional[Tensor], cfg: ModelConfig
+           ) -> Tuple[Tensor, Tensor]:
     """Consecutive cycles, each under its own remat (the inner level of
     ``remat_group``)."""
     body = _remat(_cycle, cfg.remat_policy)
     for cycle in group:
-        x = body(x, cycle, positions, cfg)
-    return x
+        x, aux = body(x, aux, cycle, shared, positions, cross, cfg)
+    return x, aux
 
 
 def _cycles_remat(params: Params, cfg: ModelConfig, x: Tensor,
-                  positions: Tensor) -> Tensor:
+                  positions: Tensor, cross: Optional[Tensor]
+                  ) -> Tuple[Tensor, Tensor]:
     """The cycles as the reference's training forward runs them: each under
     remat, and with ``remat_group`` (when it divides the cycle count) in
     groups of that many cycles under a second remat, so that only the
     group boundaries' residuals stay live between the forward and the
-    backward."""
+    backward. Returns the output and the summed auxiliary loss."""
     blocks = params["blocks"]
+    shared = params.get("shared")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     size = cfg.remat_group
     if size and size > 1 and cfg.num_cycles % size == 0:
         outer = _remat(_group, cfg.remat_policy)
         for start in range(0, len(blocks), size):
-            x = outer(x, blocks[start:start + size], positions, cfg)
-        return x
-    return _group(x, blocks, positions, cfg)
+            x, aux = outer(x, aux, blocks[start:start + size], shared,
+                           positions, cross, cfg)
+        return x, aux
+    return _group(x, aux, blocks, shared, positions, cross, cfg)
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
             remat: bool = False) -> Tuple[Tensor, Tensor]:
-    """Full-sequence forward. Returns ``(hidden (B, S, d), aux)``; ``aux``
-    is the reference's auxiliary loss, 0 for the dense family.
+    """Full-sequence forward. Returns ``(hidden (B, S, d), aux)``, ``aux``
+    the MoE layers' summed load-balancing loss (0 without experts).
 
     ``remat=True`` is the training forward (:func:`train_loss`): the cycles
     run under ``cfg.remat_policy`` and ``cfg.remat_group`` as the
     reference's ``forward`` always runs them. The default, without remat,
     is the serving path; both give the same values."""
-    x, positions = _embed_batch(params, cfg, batch)
+    x, positions, cross = _embed_batch(params, cfg, batch)
     if remat:
-        x = _cycles_remat(params, cfg, x, positions)
+        x, aux = _cycles_remat(params, cfg, x, positions, cross)
     else:
-        x = _cycles_seq(params, cfg, x, positions)[-1]
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        resid, aux = _cycles_seq(params, cfg, x, positions, cross)
+        x = resid[-1]
+    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
                aux_weight: float = 0.01) -> Tensor:
     """The chunked next-token cross-entropy of the remat forward plus
-    ``aux_weight`` times its auxiliary loss (0 for the dense family). With
-    tied embeddings the gradient reaches ``embed`` through both uses."""
+    ``aux_weight`` times its auxiliary loss. With tied embeddings the
+    gradient reaches ``embed`` through both uses."""
     hidden, aux = forward(params, cfg, batch, remat=True)
     mask = batch.get("loss_mask")
     loss = layers.chunked_softmax_xent(
@@ -298,8 +385,8 @@ def forward_taps(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     ``tap_layers[j]`` (the full-sequence twin of the tapped
     :func:`decode_step`)."""
     tap_layers = _check_tap_layers(tap_layers, cfg)
-    x, positions = _embed_batch(params, cfg, batch)
-    resid = _cycles_seq(params, cfg, x, positions)
+    x, positions, cross = _embed_batch(params, cfg, batch)
+    resid, _ = _cycles_seq(params, cfg, x, positions, cross)
     hidden = layers.rms_norm(resid[-1], params["final_norm"], cfg.norm_eps)
     taps = torch.stack([resid[j] for j in tap_layers]).to(torch.float32)
     return hidden, taps
@@ -315,43 +402,87 @@ def _cache_len(kind: str, cfg: ModelConfig, cache_len: int) -> int:
     return cache_len if window is None else min(cache_len, window)
 
 
-def init_decode_state(cfg: ModelConfig, b: int, cache_len: int,
-                      device: DeviceLike = None) -> List[Dict[str, Any]]:
-    """Zeroed caches: ``state[c]["pos{i}"]`` is a ``(B, KH, T, D)``
-    :class:`~.attention.KVCache` in the compute dtype (``T`` capped at the
-    block's window)."""
-    check_supported(cfg)
-    dev = resolve_device(device)
+def _block_state(kind: str, cfg: ModelConfig, b: int, cache_len: int,
+                 dev: torch.device):
+    """A zeroed decode state of one block: a KV cache in the compute dtype
+    (``T`` capped at the block's window; the cross caches hold
+    ``cfg.cross_attn_tokens``), or the recurrences' f32 states."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-
-    def cache(kind):
-        shape = (b, cfg.num_kv_heads, _cache_len(kind, cfg, cache_len),
-                 cfg.head_dim)
+    if kind in _ATTN_KINDS:
+        t = (cfg.cross_attn_tokens if kind == "cross_attn"
+             else _cache_len(kind, cfg, cache_len))
+        shape = (b, cfg.num_kv_heads, t, cfg.head_dim)
         return attention.KVCache(
             k=torch.zeros(shape, dtype=cdt, device=dev),
             v=torch.zeros(shape, dtype=cdt, device=dev))
+    if kind == "mlstm":
+        return ssm.mlstm_state_shape(b, cfg.d_model, cfg.ssm_expand,
+                                     cfg.ssm_heads, dev)
+    if kind == "mamba":
+        return ssm.mamba_state_shape(b, cfg.d_model, cfg.ssm_expand,
+                                     cfg.ssm_state_dim, cfg.ssm_heads,
+                                     cfg.ssm_conv_width, dev)
+    raise ValueError(kind)
 
-    return [{f"pos{i}": cache(kind) for i, kind in enumerate(cfg.cycle)}
+
+def init_decode_state(cfg: ModelConfig, b: int, cache_len: int,
+                      device: DeviceLike = None) -> List[Dict[str, Any]]:
+    """Zeroed decode states, ``state[c]["pos{i}"]`` per block."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [{f"pos{i}": _block_state(kind, cfg, b, cache_len, dev)
+             for i, kind in enumerate(cfg.cycle)}
             for _ in range(cfg.num_cycles)]
 
 
-def _apply_block_decode(kind: str, p: Params, state: attention.KVCache,
-                        x: Tensor, pos: Tensor, cfg: ModelConfig
-                        ) -> Tuple[Tensor, attention.KVCache]:
+def _cross_decode(p: Params, h: Tensor, cache: attention.KVCache,
+                  cfg: ModelConfig) -> Tensor:
+    """One token's cross-attention against the cached frontend K/V. As the
+    reference's, it applies no ``q_norm`` (the cache holds keys without
+    ``k_norm``, as ``prefill`` lays them)."""
     cdt = layers.dtype_of(cfg.compute_dtype)
+    b = h.shape[0]
+    g = cfg.num_heads // cfg.num_kv_heads
+    q = (h.to(cdt) @ p["wq"].to(cdt)).reshape(b, 1, cfg.num_kv_heads, g,
+                                              cfg.head_dim)
+    s_ = torch.einsum("bqhgd,bhtd->bhgqt", q, cache.k) * (
+        cfg.head_dim ** -0.5)
+    pr = torch.softmax(s_.to(torch.float32), dim=-1)
+    o = torch.einsum("bhgqt,bhtd->bqhgd", pr.to(cdt), cache.v)
+    return o.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"].to(cdt)
+
+
+def _apply_block_decode(kind: str, p: Params, shared: Optional[Params],
+                        state, x: Tensor, pos: Tensor, cfg: ModelConfig):
+    cdt = layers.dtype_of(cfg.compute_dtype)
+    if kind == "shared_attn":
+        p = shared
     h = layers.rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    out, state = attention.decode_attention(
-        p["attn"], h, state, pos, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, window=_window(kind, cfg),
-        compute_dtype=cdt)
-    return _apply_ffn(p, x + out.to(x.dtype), cfg), state
+    if kind in _SELF_ATTN_KINDS:
+        out, state = attention.decode_attention(
+            p["attn"], h, state, pos, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, window=_window(kind, cfg),
+            compute_dtype=cdt)
+    elif kind == "cross_attn":
+        out = _cross_decode(p["attn"], h, state, cfg)
+    elif kind == "mlstm":
+        out, state = ssm.mlstm_decode(p["mlstm"], h, state, cfg.ssm_heads,
+                                      cdt)
+    elif kind == "mamba":
+        out, state = ssm.mamba2_decode(p["mamba"], h, state, cfg.ssm_heads,
+                                       cfg.ssm_state_dim, cdt)
+    else:
+        raise ValueError(kind)
+    x, _ = _apply_ffn(p, x + out.to(x.dtype), cfg)
+    return x, state
 
 
 def decode_step(params: Params, cfg: ModelConfig, state, inputs:
                 Dict[str, Tensor], pos, tap_layers=None):
-    """One-token decode. ``inputs["tokens"]`` is ``(B,)``; ``pos`` is ``(B,)``
-    per lane or a scalar. Returns ``(logits (B, vocab), new state)``.
+    """One-token decode. ``inputs`` is ``{"tokens": (B,)}`` or ``{"embeds":
+    (B, 1, d)}``; ``pos`` is ``(B,)`` per lane or a scalar. Returns
+    ``(logits (B, vocab), new state)``.
 
     ``tap_layers`` (cycle indices) adds a third element, ``taps (num_taps,
     B, 1, d) float32``: the residual stream after each named cycle, before
@@ -359,16 +490,22 @@ def decode_step(params: Params, cfg: ModelConfig, state, inputs:
     logits and state are bit-identical with and without them.
     """
     cdt = layers.dtype_of(cfg.compute_dtype)
-    tokens = inputs["tokens"].to(params["embed"].device)
-    x = layers.embed(params["embed"], tokens[:, None], cdt)
-    pos = torch.as_tensor(pos, device=x.device)
+    dev = params["embed"].device
+    if "embeds" in inputs:
+        x = inputs["embeds"].to(dev, cdt)
+    else:
+        x = layers.embed(params["embed"], inputs["tokens"].to(dev)[:, None],
+                         cdt)
+    pos = torch.as_tensor(pos, device=dev)
+    shared = params.get("shared")
     taps = None if tap_layers is None else _check_tap_layers(tap_layers, cfg)
     new_state, resid = [], []
     for cycle, cycle_state in zip(params["blocks"], state):
         ns = {}
         for i, kind in enumerate(cfg.cycle):
             x, ns[f"pos{i}"] = _apply_block_decode(
-                kind, cycle[f"pos{i}"], cycle_state[f"pos{i}"], x, pos, cfg)
+                kind, cycle[f"pos{i}"], shared, cycle_state[f"pos{i}"], x,
+                pos, cfg)
         new_state.append(ns)
         resid.append(x)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -380,19 +517,24 @@ def decode_step(params: Params, cfg: ModelConfig, state, inputs:
 
 
 # ---------------------------------------------------------------------------
-# Prefill: the sequence forward that also fills the decode caches
+# Prefill: the sequence forward that also fills the decode states
 # ---------------------------------------------------------------------------
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
             cache_len: int):
     """Process a prompt of S tokens; returns ``(decode state, last-token
-    logits)``. The caches hold the prompt's K/V, laid out once in the decode
-    layout ``(B, KH, T, D)``: a ring keeps the last ``T`` positions at slot
-    ``position % T``."""
+    logits)``. The self-attention caches hold the prompt's K/V, laid out
+    once in the decode layout ``(B, KH, T, D)``: a ring keeps the last ``T``
+    positions at slot ``position % T``. A cross cache holds the projected
+    frontend states (``cross_states.shape[1]`` tokens, without ``k_norm``,
+    and the block's queries skip ``q_norm`` here, as the reference's
+    prefill does); the recurrences' states are their final
+    :class:`~.ssm.RecurrentState` / :class:`~.ssm.MambaState`."""
     cdt = layers.dtype_of(cfg.compute_dtype)
-    x, positions = _embed_batch(params, cfg, batch)
+    x, positions, cross = _embed_batch(params, cfg, batch)
     b, s = x.shape[:2]
+    shared = params.get("shared")
 
     def cache_from_kv(k: Tensor, v: Tensor, kind: str) -> attention.KVCache:
         window = _window(kind, cfg)
@@ -412,21 +554,56 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
             cv[:, :, :keep] = vt[:, :, :keep]
         return attention.KVCache(k=ck, v=cv)
 
+    def heads(t: Tensor, n: int) -> Tensor:
+        return t.reshape(b, t.shape[1], n, cfg.head_dim)
+
     states = []
     for cycle in params["blocks"]:
         st = {}
         for i, kind in enumerate(cfg.cycle):
-            p = cycle[f"pos{i}"]
+            p = shared if kind == "shared_attn" else cycle[f"pos{i}"]
             h = layers.rms_norm(x, p["pre_norm"], cfg.norm_eps)
-            q, k, v = attention._project_qkv(
-                p["attn"], h, positions, cfg.num_heads, cfg.num_kv_heads,
-                cfg.head_dim, cfg.rope_theta, cdt)
-            out = attention.chunked_attention(
-                q, k, v, chunk=cfg.attn_chunk, causal=True,
-                window=_window(kind, cfg))
-            out = out.reshape(b, s, -1) @ p["attn"]["wo"].to(cdt)
-            x = _apply_ffn(p, x + out.to(x.dtype), cfg)
-            st[f"pos{i}"] = cache_from_kv(k, v, kind)
+            if kind in _SELF_ATTN_KINDS:
+                q, k, v = attention._project_qkv(
+                    p["attn"], h, positions, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim, cfg.rope_theta, cdt)
+                out = attention.chunked_attention(
+                    q, k, v, chunk=cfg.attn_chunk, causal=True,
+                    window=_window(kind, cfg))
+                out = out.reshape(b, s, -1) @ p["attn"]["wo"].to(cdt)
+                st[f"pos{i}"] = cache_from_kv(k, v, kind)
+            elif kind == "cross_attn":
+                if cross is None:
+                    raise ValueError(f"{cfg.name} has cross-attention "
+                                     f"blocks: the batch needs cross_states")
+                a = p["attn"]
+                k = heads(cross @ a["wk"].to(cdt), cfg.num_kv_heads)
+                v = heads(cross @ a["wv"].to(cdt), cfg.num_kv_heads)
+                q = heads(h.to(cdt) @ a["wq"].to(cdt), cfg.num_heads)
+                out = attention.chunked_attention(
+                    q, k, v, chunk=cfg.attn_chunk, causal=False, window=None)
+                out = out.reshape(b, s, -1) @ a["wo"].to(cdt)
+                st[f"pos{i}"] = attention.KVCache(
+                    k=k.transpose(1, 2).contiguous(),
+                    v=v.transpose(1, 2).contiguous())
+            elif kind == "mlstm":
+                pp = p["mlstm"]
+                q, k, v, lf, gi = ssm._mlstm_gates(pp, h, cfg.ssm_heads, cdt)
+                y, st[f"pos{i}"] = ssm.glr_chunked(
+                    q, k, v, lf, gi, chunk=cfg.attn_chunk, normalize=True)
+                out = ssm._mlstm_out(pp, h, y, cdt)
+            elif kind == "mamba":
+                pp = p["mamba"]
+                q, k, v, lf, dt, z, hist = ssm._mamba_core_inputs(
+                    pp, h, cfg.ssm_heads, cfg.ssm_state_dim, cdt)
+                y, rec = ssm.glr_chunked(q, k, v, lf, dt,
+                                         chunk=cfg.attn_chunk,
+                                         normalize=False)
+                out = ssm._mamba_out(pp, y, v, z, cdt)
+                st[f"pos{i}"] = ssm.MambaState(ssm=rec, conv=hist)
+            else:
+                raise ValueError(kind)
+            x, _ = _apply_ffn(p, x + out.to(x.dtype), cfg)
         states.append(st)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(unembed_table(params, cfg), x[:, -1, :], cdt)

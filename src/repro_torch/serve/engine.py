@@ -97,12 +97,19 @@ class ServeEngine:
     # -- lane management ----------------------------------------------------
 
     def _reset_lane(self, i: int) -> None:
-        """Zero lane ``i``'s caches in place (every tensor is ``(B, ...)``)."""
+        """Zero lane ``i``'s states in place: every tensor of the tree (KV
+        caches, recurrent states, a Mamba state's nested recurrence and
+        conv history) is ``(B, ...)``."""
+        def zero(node):
+            if isinstance(node, torch.Tensor):
+                node[i].zero_()
+            else:
+                for child in (node.values() if isinstance(node, dict)
+                              else node):
+                    zero(child)
+
         with torch.no_grad():
-            for cycle in self.state:
-                for cache in cycle.values():
-                    for t in cache:
-                        t[i].zero_()
+            zero(self.state)
         self.pos[i] = 0
         self.resets += 1
 

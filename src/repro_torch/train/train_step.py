@@ -73,8 +73,11 @@ def _value_and_grad(params: Any, cfg: ModelConfig, batch: Dict[str, Tensor],
                     aux_weight: float):
     leaves = tree_lib.leaves(params)
     loss = model.train_loss(params, cfg, batch, aux_weight)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), list(grads)
+    # A leaf the loss does not reach (the token table of a model fed
+    # embeds) gets zeros, as jax.grad gives it.
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
 
 
 def loss_and_grads(params: Any, cfg: ModelConfig, batch: Dict[str, Tensor],

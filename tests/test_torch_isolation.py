@@ -44,6 +44,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.models.layers",
                  "repro_torch.models.attention",
                  "repro_torch.models.model",
+                 "repro_torch.models.ssm",
+                 "repro_torch.models.moe",
                  "repro_torch.configs.registry",
                  "repro_torch.configs.qwen2_7b",
                  "repro_torch.core.probes",

@@ -1308,3 +1308,147 @@ def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     for (name, a), (name_b, b) in pairs:
         assert name == name_b and a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a.detach(), b.detach()), name
+
+
+_NON_DENSE = ("xlstm-1.3b", "zamba2-2.7b", "mixtral-8x22b",
+              "phi3.5-moe-42b-a6.6b", "musicgen-medium",
+              "llama-3.2-vision-11b")
+
+
+def _lm_batch(cfg, seed, b, s):
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.embeddings_provided:
+        out["embeds"] = torch.from_numpy(
+            (0.1 * rng.normal(size=(b, s, cfg.d_model))).astype(np.float32))
+    else:
+        out["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(b, s)).astype(np.int32))
+    if "cross_attn" in cfg.cycle:
+        out["cross_states"] = torch.from_numpy((0.1 * rng.normal(
+            size=(b, cfg.cross_attn_tokens, cfg.d_model))).astype(np.float32))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _NON_DENSE)
+def test_non_dense_smoke_configs_on_the_card_match_the_cpu(cuda, arch):
+    """Each non-dense smoke config in f32, the same parameters on the card
+    and on the CPU: forward (hidden and aux), prefill and four decode steps
+    within 1e-4 (cuBLAS and the CPU sum products in other orders), and a
+    train step's loss within 1e-5 relative with finite gradients."""
+    from repro_torch.configs import registry
+    from repro_torch.device import resolve_device
+    from repro_torch.models import model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import tree as tree_lib
+
+    resolve_device(cuda)  # IEEE f32 products, no TF32
+    cfg = registry.get_config(arch, smoke=True)
+    host = model.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    card = tree_lib.tree_map(lambda t: t.to(cuda), host)
+    b, s, prefix = 2, 40, 36
+    batch = _lm_batch(cfg, 1, b, s)
+    on = lambda bt, dev: {k: v.to(dev) for k, v in bt.items()}
+    close = lambda got, want: np.testing.assert_allclose(
+        got.float().cpu().numpy(), want.float().numpy(), rtol=0, atol=1e-4)
+    (hc, ac), (hh, ah) = (model.forward(card, cfg, on(batch, cuda)),
+                          model.forward(host, cfg, batch))
+    close(hc, hh)
+    assert abs(float(ac) - float(ah)) <= 1e-5 * max(float(ah), 1.0)
+    pre = {k: (v[:, :prefix] if k in ("tokens", "embeds") else v)
+           for k, v in batch.items()}
+    sc, lc = model.prefill(card, cfg, on(pre, cuda), cache_len=s)
+    sh, lh = model.prefill(host, cfg, pre, cache_len=s)
+    close(lc, lh)
+    for pos in range(prefix, s):
+        inp = ({"embeds": batch["embeds"][:, pos:pos + 1]} if
+               cfg.embeddings_provided else {"tokens": batch["tokens"][:, pos]})
+        lc, sc = model.decode_step(card, cfg, sc, on(inp, cuda), pos)
+        lh, sh = model.decode_step(host, cfg, sh, inp, pos)
+        close(lc, lh)
+    for g, w in zip(tree_lib.leaves(sc), tree_lib.leaves(sh)):
+        assert g.is_cuda and g.dtype == w.dtype
+        close(g, w)
+    labels = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32))
+    train = dict(batch, labels=labels)
+    lc, gc = ts.loss_and_grads(ts.trainable(card), cfg, on(train, cuda))
+    lh, _ = ts.loss_and_grads(ts.trainable(host), cfg, train)
+    assert abs(float(lc) - float(lh)) <= 1e-5 * float(lh)
+    assert all(bool(torch.isfinite(g).all()) for g in tree_lib.leaves(gc))
+
+
+@pytest.mark.gpu
+def test_glr_chunked_in_bf16_at_zamba2_width_on_the_card(cuda):
+    """One 1024-token chunk at zamba2-2.7b's 80 heads of 64 x 64 in bf16:
+    the card's f32 chunk products against the CPU's, each output within
+    one bf16 ulp (2^-7 relative) plus 1e-5 of the largest; then the
+    gradients at a decay that overflows the reference's masked exp are
+    finite on the card."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import ssm
+
+    resolve_device(cuda)
+    b, s, h, n = 1, 1024, 80, 64
+    rng = np.random.default_rng(3)
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(torch.bfloat16)
+    q, k, v = f(b, s, h, n), f(b, s, h, n), f(b, s, h, n)
+    log_f = torch.from_numpy(-rng.uniform(0.0, 0.16, (b, s, h)).astype(
+        np.float32))
+    gate = torch.from_numpy(rng.uniform(0.001, 0.1, (b, s, h)).astype(
+        np.float32))
+    args = (q, k, v, log_f, gate)
+    yc, stc = ssm.glr_chunked(*(a.to(cuda) for a in args), chunk=1024)
+    yh, sth = ssm.glr_chunked(*args, chunk=1024)
+    assert yc.dtype == torch.bfloat16 and yc.shape == (b, s, h, n)
+    peak = float(yh.float().abs().max())
+    gap = (yc.float().cpu() - yh.float()).abs()
+    assert bool((gap <= 2.0 ** -7 * yh.float().abs() + 1e-5 * peak).all())
+    np.testing.assert_allclose(stc.s.cpu().numpy(), sth.s.numpy(),
+                               rtol=1e-4, atol=1e-4 * float(sth.s.abs().max()))
+    strong = [a.to(cuda).float().requires_grad_() for a in args]
+    with torch.no_grad():
+        strong[3].fill_(-3.0)
+    y, _ = ssm.glr_chunked(*strong, chunk=1024)
+    grads = torch.autograd.grad(y.float().sum(), strong)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.gpu
+def test_moe_prefill_at_4096_tokens_on_the_card_matches_the_cpu(cuda):
+    """phi3.5-moe-smoke's MoE FFN on one 4096-token group (capacity factor
+    1, so 1024 slots of each of 8 experts for 8192 choices: the busier
+    experts drop tokens) in f32: the routing of the same logits is the same on
+    both devices (experts, slots and drops exactly; the gates, softmax in
+    another order, within 1e-6), and the output within 1e-4 of the
+    CPU's."""
+    from repro_torch.configs import registry
+    from repro_torch.device import resolve_device
+    from repro_torch.models import model, moe
+
+    resolve_device(cuda)
+    cfg = registry.get_config("phi3.5-moe-42b-a6.6b", smoke=True)
+    host = model.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")["blocks"][0]["pos0"]["moe"]
+    card = {k: v.to(cuda) for k, v in host.items()}
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(1, 4096, cfg.d_model)).astype(np.float32))
+    logits = (x[0] @ host["router"])[None]
+    capacity = int(4096 * 2 * 1.0 / cfg.num_experts)
+    rh, auxh = moe._top_k_dispatch(logits, 2, capacity)
+    rc, auxc = moe._top_k_dispatch(logits.to(cuda), 2, capacity)
+    for field in ("expert", "slot", "kept"):
+        assert torch.equal(getattr(rh, field), getattr(rc, field).cpu())
+    assert not bool(rh.kept.all())  # capacity binds
+    np.testing.assert_allclose(rc.gate.cpu().numpy(), rh.gate.numpy(),
+                               rtol=0, atol=1e-6)
+    assert float(auxc) == pytest.approx(float(auxh), rel=1e-6)
+    kw = dict(experts_per_token=2, capacity_factor=1.0,
+              compute_dtype=torch.float32)
+    out_c, _ = moe.moe_ffn(card, x.to(cuda), **kw)
+    out_h, _ = moe.moe_ffn(host, x, **kw)
+    np.testing.assert_allclose(out_c.cpu().numpy(), out_h.numpy(), rtol=0,
+                               atol=1e-4)

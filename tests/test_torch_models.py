@@ -9,7 +9,9 @@ decode steps (per-lane and scalar positions, tapped and untapped) and tap
 extraction agree with JAX's within 1e-4 absolute (the two frameworks sum
 the products in different orders; the largest difference seen is 8e-6).
 Registry contents and the analytic parameter counts of all 20 configs are
-equal exactly; the six non-dense configs raise when built.
+equal exactly; the six non-dense configs (held against JAX in
+``test_torch_models_nondense.py``) raise when built with
+``sequence_parallel``, which waits for the LM's sharding.
 """
 
 import dataclasses
@@ -291,13 +293,21 @@ def test_configs_and_counts_equal_jax(arch, smoke):
 
 @pytest.mark.parametrize("arch", NON_DENSE)
 def test_non_dense_configs_raise_at_build(arch):
-    cfg = registry.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    # Every kind builds now; only the sequence-parallel recurrence
+    # (ssm.glr_shardmapped) waits for ROADMAP item 12d.
+    cfg = dataclasses.replace(registry.get_config(arch, smoke=True),
+                              sequence_parallel=True)
+    with pytest.raises(NotImplementedError, match="item 12d"):
         model.init_params(None, cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(NotImplementedError, match="item 12d"):
         model.init_decode_state(cfg, 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(NotImplementedError, match="item 12d"):
         interop.lm_params({}, cfg, CPU)
+    built = model.init_params(None, dataclasses.replace(
+        cfg, sequence_parallel=False), device=CPU)
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        model.prefill(built, cfg, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.int32)}, cache_len=8)
 
 
 def test_tap_layers_are_validated(lms):

@@ -12,6 +12,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import dfo as jdfo
@@ -20,6 +21,37 @@ from repro.core import lsh as jlsh
 from repro_torch import interop
 
 CPU = "cpu"
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's tests (autouse where a test
+    module imports it): their small tensors run as fast on one, and under
+    ``pytest -n`` each worker's default of one thread a core would
+    oversubscribe the cores several times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# XLA's lowest optimization level: the same functions, compiled in about
+# half the time (values move by f32 roundings).
+FAST_XLA = {"xla_backend_optimization_level": 0,
+            "xla_llvm_disable_expensive_passes": True}
+_COMPILED = {}
+
+
+def run_fast(key, fn, *args):
+    """``fn(*args)`` (array trees only) through a program compiled at
+    ``FAST_XLA`` once per ``key`` and the arguments' shapes and dtypes. Far
+    cheaper than running the reference op by op, which compiles each
+    primitive at each shape on first use."""
+    leaves, tree = jax.tree.flatten(args)
+    sig = (key, tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
+    if sig not in _COMPILED:
+        _COMPILED[sig] = jax.jit(fn).lower(*args).compile(
+            compiler_options=FAST_XLA)
+    return _COMPILED[sig](*args)
 
 
 def jax_params(seed: int, rows: int, planes: int, dim: int):
