@@ -12,7 +12,11 @@ noise drawn by ``jax.random`` (:func:`noise`) and a view's read plans
 training state (parameters, AdamW moments and master copies, step counters)
 through :func:`train_state` (the reference stacks per-cycle arrays on a
 leading ``num_cycles`` axis, the port keeps a list of cycles); a checkpoint
-directory the reference wrote is read by :func:`read_jax_checkpoint`. This
+directory the reference wrote is read by :func:`read_jax_checkpoint`.
+Shape-only trees (``jax.eval_shape``'s) become the port's as meta tensors
+(:func:`lm_param_shapes`, :func:`decode_state_shapes`), a reference
+``PartitionSpec`` the port's (:func:`partition_spec`), and the gradient
+compressor's hash draws cross as arrays (:func:`compression_hashes`). This
 module takes and returns numpy only; it never imports JAX.
 """
 
@@ -32,10 +36,10 @@ from repro_torch.core.sketch import Sketch, SketchBank, counter_dtype
 from repro_torch.core.tiered import TieredBank
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as model_layers
-from repro_torch.models import model as lm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import MambaState, RecurrentState
+from repro_torch.sharding.specs import PartitionSpec
 from repro_torch.train import checkpoint
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as ts
@@ -188,9 +192,7 @@ def lm_params(tree, cfg: ModelConfig, device: DeviceLike = None) -> dict:
     """The reference's parameter tree (nested dicts of arrays, ``blocks``
     stacked on a leading ``num_cycles`` axis; ``shared`` unstacked) -> the
     port's, in ``cfg.param_dtype`` on ``device``. Weights keep their ``(in,
-    out)`` layout, expert stacks their ``(E, in, out)``. Raises
-    ``NotImplementedError`` for a model the port cannot build."""
-    lm.check_supported(cfg)
+    out)`` layout, expert stacks their ``(E, in, out)``."""
     return _unstack(tree, cfg, model_layers.dtype_of(cfg.param_dtype),
                     resolve_device(device))
 
@@ -266,7 +268,8 @@ def _block_state(kind: str, node, c: int, dev: torch.device):
     """Cycle ``c`` of one block's stacked reference state (a named tuple or
     plain tuple of arrays), each leaf in its own dtype: ``(k, v)`` for the
     attention kinds, ``(s, n)`` for mlstm, ``((s, n), conv)`` for mamba."""
-    leaf = lambda a: _leaf(np.asarray(a)[c], None, dev)
+    leaf = lambda a: _leaf(a[c] if isinstance(a, torch.Tensor)
+                           else np.asarray(a)[c], None, dev)
     if kind == "mlstm":
         return RecurrentState(*(leaf(a) for a in node))
     if kind == "mamba":
@@ -295,6 +298,56 @@ def decode_state_to_numpy(state: list) -> dict:
     return _stack_cycles(state)
 
 
+_META = torch.device("meta")
+
+
+def _meta_tree(node):
+    """A tree of shape-and-dtype leaves (``jax.ShapeDtypeStruct``s or
+    arrays) as meta tensors: nothing allocated. Mappings become dicts,
+    tuples keep their type."""
+    if isinstance(node, Mapping):
+        return {k: _meta_tree(v) for k, v in node.items()}
+    if isinstance(node, tuple):
+        items = [_meta_tree(v) for v in node]
+        return type(node)(*items) if hasattr(node, "_fields") else tuple(
+            items)
+    dtype = getattr(torch, np.dtype(node.dtype).name)
+    return torch.empty(tuple(node.shape), dtype=dtype, device=_META)
+
+
+def lm_param_shapes(tree, cfg: ModelConfig) -> dict:
+    """The reference's shape-only parameter tree (``jax.eval_shape`` of
+    ``init_params``) -> the port's, as meta tensors, unstacked as
+    :func:`lm_params` unstacks (a list of cycles)."""
+    return _unstack(_meta_tree(tree), cfg, None, _META)
+
+
+def decode_state_shapes(tree, cfg: ModelConfig) -> list:
+    """The reference's shape-only decode state -> the port's list of cycles
+    of meta tensors, as :func:`decode_state` lays it out."""
+    meta = _meta_tree(tree)
+    return [{f"pos{i}": _block_state(kind, meta[f"pos{i}"], c, _META)
+             for i, kind in enumerate(cfg.cycle)}
+            for c in range(cfg.num_cycles)]
+
+
+def partition_spec(spec, stacked: bool = False) -> PartitionSpec:
+    """A reference ``PartitionSpec`` (its entries: ``None``, names, tuples
+    of names) as the port's; ``stacked`` drops the leading entry of a leaf
+    stacked on ``num_cycles`` (the port's leaf is one cycle's)."""
+    entries = tuple(spec)
+    return PartitionSpec(*(entries[1:] if stacked else entries))
+
+
+def compression_hashes(buckets, signs, device: DeviceLike = None):
+    """The reference compressor's ``(rows, n)`` buckets and signs (its
+    ``_hash_params``) -> ``hashes=`` for ``train.compression``: int64 and
+    float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return (torch.from_numpy(np.array(buckets, dtype=np.int64)).to(dev),
+            torch.from_numpy(np.array(signs, dtype=np.float32)).to(dev))
+
+
 def _field(node, name: str):
     """``node.name`` (a named tuple) or ``node[name]`` (a mapping; a missing
     key is ``None``)."""
@@ -311,7 +364,6 @@ def train_state(tree, cfg: ModelConfig, device: DeviceLike = None
     Parameters are in ``cfg.param_dtype`` and require gradients; moments
     and master copies keep their own dtype (bf16 exactly); the step
     counters are host int32 tensors."""
-    lm.check_supported(cfg)
     dev = resolve_device(device)
     opt = _field(tree, "opt")
     master = _field(opt, "master")

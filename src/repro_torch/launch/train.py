@@ -6,8 +6,11 @@ loop (port of ``repro.launch.train``).
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke-config
 
 The mesh is the port's one-axis debug mesh over every visible card (or the
-named CPU); training runs on its first device. The reference's activation
-hints are identity on one device and have no port yet. Each step's batch is
+named CPU); training runs on its first device, with the mesh ambient and
+the reference's activation rules (``specs.activation_hint_rules``)
+installed for ``constraints.hint``, as the reference's launcher does. The
+single controller keeps activations whole, so the hints check their rule
+against the mesh and change no value. Each step's batch is
 drawn from a ``torch.Generator`` seeded by ``(11, step)``: deterministic in
 the step, as restart-replay needs, but not the reference's threefry stream.
 A second run on the same ``--ckpt-dir`` resumes from its newest checkpoint.
@@ -24,7 +27,9 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.device import generator
-from repro_torch.sharding.mesh import make_debug_mesh
+from repro_torch.sharding import specs
+from repro_torch.sharding.constraints import activation_rules
+from repro_torch.sharding.mesh import make_debug_mesh, set_mesh
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as ts
 from repro_torch.train import trainer
@@ -78,11 +83,13 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                               ckpt_dir=args.ckpt_dir)
     cross = ((cfg.cross_attn_tokens, cfg.d_model)
              if "cross_attn" in cfg.cycle else None)
-    report = trainer.train(
-        generator(0, dev), cfg, tcfg, loop,
-        lambda step: data_for_step(step, args.batch, args.seq,
-                                   cfg.vocab_size, cross),
-        device=dev)
+    rules = specs.activation_hint_rules(cfg, mesh)
+    with set_mesh(mesh), activation_rules(rules):
+        report = trainer.train(
+            generator(0, dev), cfg, tcfg, loop,
+            lambda step: data_for_step(step, args.batch, args.seq,
+                                       cfg.vocab_size, cross),
+            device=dev)
     line = (f"arch={cfg.name} steps={report.steps_run} "
             f"final_loss={report.final_loss:.4f} "
             f"resumed={report.resumed_from}")

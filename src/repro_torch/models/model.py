@@ -22,6 +22,14 @@ Public entry points:
   * ``prefill(params, cfg, batch, cache_len)`` -> (state, logits_last)
   * ``decode_step(params, cfg, state, inputs, pos, tap_layers=None)``
   * ``forward_taps(params, cfg, batch, tap_layers)`` -> (hidden, taps)
+  * ``apply_cycles(cycles, cfg, x)``           -> x (a pipeline stage)
+
+``cfg.sequence_parallel`` runs every mLSTM recurrence of the sequence
+paths (``forward``, ``forward_taps``, ``train_loss``, ``prefill``) over the
+``model`` axis of the ambient mesh (``sharding.mesh.set_mesh``;
+``ssm.glr_shardmapped``), raising without one; decode and Mamba2 stay as
+they are, as in the reference. ``sharding.constraints.hint`` marks the
+residual stream where the reference pins its layout.
 
 ``batch`` is a dict with ``tokens (B, S)`` or ``embeds (B, S, d)`` (the
 stub frontends' frame or patch embeddings), ``cross_states (B, T, d)`` for
@@ -42,21 +50,14 @@ from repro_torch.device import DeviceLike, generator as make_generator
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import mesh as mesh_lib
+from repro_torch.sharding.constraints import hint
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 _ATTN_KINDS = ("attn", "local_attn", "cross_attn", "shared_attn")
 _SELF_ATTN_KINDS = ("attn", "local_attn", "shared_attn")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port cannot build yet."""
-    if cfg.sequence_parallel:
-        raise NotImplementedError(
-            f"{cfg.name} asks for sequence_parallel: the recurrence's "
-            f"cross-device prefix scan (ssm.glr_shardmapped) comes with the "
-            f"LM's sharding, ROADMAP Queue 1 item 12d")
 
 
 def _window(kind: str, cfg: ModelConfig) -> Optional[int]:
@@ -114,7 +115,6 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     """Random-init parameters, each tensor drawn in f32 from ``gen`` on the
     device and cast to ``cfg.param_dtype`` at once (``gen=None``: seed 0).
     ``device=None`` is the card, raising without one."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = gen if gen is not None else make_generator(0, dev)
     if gen.device.type != dev.type:
@@ -177,7 +177,7 @@ def _apply_ffn(p: Params, x: Tensor, cfg: ModelConfig
             capacity_factor=cfg.moe_capacity_factor, compute_dtype=cdt)
     else:
         out = layers.mlp(p["mlp"], h, cdt)
-    return x + out.to(x.dtype), aux
+    return hint(x + out.to(x.dtype), "residual"), aux
 
 
 def _mixer_seq(kind: str, p: Params, h: Tensor, positions: Tensor,
@@ -197,7 +197,8 @@ def _mixer_seq(kind: str, p: Params, h: Tensor, positions: Tensor,
         return attention.cross_attention(p["attn"], h, cross, **common)
     if kind == "mlstm":
         return ssm.mlstm_block(p["mlstm"], h, cfg.ssm_heads, cfg.attn_chunk,
-                               cdt)
+                               cdt, seq_axis=("model" if cfg.sequence_parallel
+                                              else None))
     if kind == "mamba":
         return ssm.mamba2_block(p["mamba"], h, cfg.ssm_heads,
                                 cfg.ssm_state_dim, cfg.attn_chunk, cdt)
@@ -213,7 +214,7 @@ def _apply_block_seq(kind: str, p: Params, shared: Optional[Params],
         p = shared
     h = layers.rms_norm(x, p["pre_norm"], cfg.norm_eps)
     out = _mixer_seq(kind, p, h, positions, cross, cfg)
-    return _apply_ffn(p, x + out.to(x.dtype), cfg)
+    return _apply_ffn(p, hint(x + out.to(x.dtype), "residual"), cfg)
 
 
 def _embed_batch(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
@@ -221,8 +222,7 @@ def _embed_batch(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
     """The batch's input embeddings (``embeds``, or the tokens' rows of the
     table), their ``(B, S)`` positions and the cross states, in the compute
     dtype on the parameters' device. Every sequence-mode entry point starts
-    here, so a config this port cannot run raises here."""
-    check_supported(cfg)
+    here."""
     cdt = layers.dtype_of(cfg.compute_dtype)
     dev = params["embed"].device
     if "embeds" in batch:
@@ -265,6 +265,22 @@ def _cycles_seq(params: Params, cfg: ModelConfig, x: Tensor,
     return resid, aux
 
 
+def apply_cycles(cycles: List[Params], cfg: ModelConfig, x: Tensor,
+                 shared: Optional[Params] = None,
+                 cross_states: Optional[Tensor] = None) -> Tensor:
+    """The residual stream ``x (B, S, d)`` (compute dtype) through
+    ``cycles``, a run of ``params["blocks"]``: a pipeline stage's function
+    (``sharding.pipeline``), with the embedding, the final norm and the
+    unembedding left to the caller; the MoE auxiliary loss is dropped."""
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[
+        None].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for cycle in cycles:
+        x, aux = _cycle(x, aux, cycle, shared, positions, cross_states, cfg)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Remat: the reference's jax.checkpoint around the cycles
 # ---------------------------------------------------------------------------
@@ -281,13 +297,30 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _under_mesh(fn):
+    """``fn`` run under the ambient mesh of the moment it is wrapped. A
+    checkpointed forward is recomputed in the backward on autograd's own
+    thread (on the card, one a device), where the caller's ambient mesh is
+    not set; the sequence-parallel recurrence reads it there."""
+    mesh = mesh_lib.get_mesh()
+
+    def run(*args):
+        with mesh_lib.set_mesh(mesh):
+            return fn(*args)
+
+    return run
+
+
 def _remat(fn, policy: str):
     """``fn`` under the reference's ``_remat_policy(policy)``: ``"nothing"``
     saves only ``fn``'s inputs and recomputes the rest in the backward,
     ``"dots"`` also saves the weight products, anything else saves
     everything (no checkpoint). ``fn`` takes its tensors as arguments, so
     the checkpoint sees every input whose gradient it must return; there is
-    no RNG in the forward, so no RNG state is stashed."""
+    no RNG in the forward, so no RNG state is stashed. The recompute runs
+    under the forward's ambient mesh (:func:`_under_mesh`)."""
+    if policy in ("nothing", "dots"):
+        fn = _under_mesh(fn)
     if policy == "nothing":
         return functools.partial(torch_checkpoint.checkpoint, fn,
                                  use_reentrant=False, preserve_rng_state=False)
@@ -343,6 +376,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     reference's ``forward`` always runs them. The default, without remat,
     is the serving path; both give the same values."""
     x, positions, cross = _embed_batch(params, cfg, batch)
+    x = hint(x, "residual")
     if remat:
         x, aux = _cycles_remat(params, cfg, x, positions, cross)
     else:
@@ -386,7 +420,8 @@ def forward_taps(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     :func:`decode_step`)."""
     tap_layers = _check_tap_layers(tap_layers, cfg)
     x, positions, cross = _embed_batch(params, cfg, batch)
-    resid, _ = _cycles_seq(params, cfg, x, positions, cross)
+    resid, _ = _cycles_seq(params, cfg, hint(x, "residual"), positions,
+                           cross)
     hidden = layers.rms_norm(resid[-1], params["final_norm"], cfg.norm_eps)
     taps = torch.stack([resid[j] for j in tap_layers]).to(torch.float32)
     return hidden, taps
@@ -428,7 +463,6 @@ def _block_state(kind: str, cfg: ModelConfig, b: int, cache_len: int,
 def init_decode_state(cfg: ModelConfig, b: int, cache_len: int,
                       device: DeviceLike = None) -> List[Dict[str, Any]]:
     """Zeroed decode states, ``state[c]["pos{i}"]`` per block."""
-    check_supported(cfg)
     dev = resolve_device(device)
     return [{f"pos{i}": _block_state(kind, cfg, b, cache_len, dev)
              for i, kind in enumerate(cfg.cycle)}
@@ -589,8 +623,15 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
             elif kind == "mlstm":
                 pp = p["mlstm"]
                 q, k, v, lf, gi = ssm._mlstm_gates(pp, h, cfg.ssm_heads, cdt)
-                y, st[f"pos{i}"] = ssm.glr_chunked(
-                    q, k, v, lf, gi, chunk=cfg.attn_chunk, normalize=True)
+                if cfg.sequence_parallel:
+                    y, st[f"pos{i}"] = ssm.glr_shardmapped(
+                        q, k, v, lf, gi, seq_axis="model",
+                        chunk=cfg.attn_chunk, normalize=True,
+                        return_state=True)
+                else:
+                    y, st[f"pos{i}"] = ssm.glr_chunked(
+                        q, k, v, lf, gi, chunk=cfg.attn_chunk,
+                        normalize=True)
                 out = ssm._mlstm_out(pp, h, y, cdt)
             elif kind == "mamba":
                 pp = p["mamba"]
@@ -603,7 +644,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
                 st[f"pos{i}"] = ssm.MambaState(ssm=rec, conv=hist)
             else:
                 raise ValueError(kind)
-            x, _ = _apply_ffn(p, x + out.to(x.dtype), cfg)
+            x, _ = _apply_ffn(p, hint(x + out.to(x.dtype), "residual"), cfg)
         states.append(st)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(unembed_table(params, cfg), x[:, -1, :], cdt)

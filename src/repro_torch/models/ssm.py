@@ -1,7 +1,7 @@
 """Linear-recurrence sequence mixers: mLSTM (xLSTM) and Mamba2 (SSD) (port
-of ``repro.models.ssm``; the sequence-parallel forms ``glr_shardmapped`` and
-``glr_sequence_parallel`` come with the LM's sharding, ROADMAP Queue 1 item
-12d).
+of ``repro.models.ssm``, with the sequence-parallel form of the recurrence,
+``glr_sequence_parallel`` / ``glr_shardmapped``, over a mesh's ``model``
+axis).
 
 Both are one scalar-decay gated linear recurrence per head:
 
@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import layers
+from repro_torch.sharding import mesh as mesh_lib
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -143,6 +144,106 @@ def glr_chunked(q: Tensor, k: Tensor, v: Tensor, log_f: Tensor,
     return y.to(v.dtype), final
 
 
+def glr_sequence_parallel(q: Tensor, k: Tensor, v: Tensor, log_f: Tensor,
+                          gate_i: Tensor, mesh: mesh_lib.Mesh, *,
+                          seq_axis: str = "model", chunk: int = 256,
+                          normalize: bool = False,
+                          return_state: bool = False):
+    """The recurrence over a sequence cut along ``seq_axis`` (LASP-style;
+    the reference's ``glr_sequence_parallel`` inside its ``shard_map``,
+    written over the axis's devices by the single controller).
+
+    The recurrence over a span of tokens is an affine map of the state,
+    ``S -> a S + B`` (``a = exp(sum log_f)``, ``B`` the span's decayed
+    outer products), and affine maps compose associatively. So the
+    ``P`` devices along ``seq_axis`` (at the other axes' coordinates of the
+    mesh's first device) each run :func:`glr_chunked` over a contiguous
+    span of ``S / P`` tokens from a zero state, unnormalized; a
+    Hillis-Steele inclusive scan of ``(log a, S, n)`` over ``ceil(log2
+    P)`` rounds combines them (round ``r`` moves device ``i``'s value to
+    device ``i + 2^r``, the reference's ``ppermute``, as a copy), and the
+    exclusive shift gives each span the state before it; each span adds
+    ``q exp(cumsum log_f) @ S_before`` (and the normalizer's term) before
+    normalizing. ``y`` comes back whole on ``q``'s device; with
+    ``return_state`` so does the final state, the last span's inclusive
+    value. Gradients flow through every copy.
+
+    The spans' chunks start at their span's start (a span shorter than
+    ``chunk`` is one chunk), so sums run in another order than the
+    meshless run's: results agree with it to f32 rounding."""
+    devs = mesh.along(seq_axis)
+    n_dev = len(devs)
+    b, s, h, dk = q.shape
+    if s % n_dev:
+        raise ValueError(f"sequence of {s} tokens not divisible by mesh "
+                         f"axis {seq_axis!r} ({n_dev} devices)")
+    span = s // n_dev
+    home = q.device
+    f32 = torch.float32
+    raws, incs = [], []
+    for i, dev in enumerate(devs):
+        part = [t[:, i * span:(i + 1) * span].to(dev)
+                for t in (q, k, v, log_f, gate_i)]
+        (y_raw, ndot), st = glr_chunked(*part, chunk=chunk,
+                                        normalize=normalize, return_raw=True)
+        raws.append((part[0], part[3], y_raw, ndot))
+        incs.append((part[3].to(f32).sum(dim=1), st.s, st.n))   # (B, H)
+
+    # The inclusive prefix scan of the affine maps.
+    shift = 1
+    while shift < n_dev:
+        nxt = list(incs)
+        for i in range(shift, n_dev):
+            la_p, s_p, n_p = (t.to(devs[i]) for t in incs[i - shift])
+            la, s_c, n_c = incs[i]
+            a_c = torch.exp(la)
+            nxt[i] = (la_p + la, a_c[..., None, None] * s_p + s_c,
+                      a_c[..., None] * n_p + n_c)
+        incs = nxt
+        shift *= 2
+
+    ys = []
+    for i, (dev, (qi, lfi, y_raw, ndot)) in enumerate(zip(devs, raws)):
+        # The state before this span: the exclusive prefix.
+        if i == 0:
+            s_pre = torch.zeros_like(incs[0][1])
+            n_pre = torch.zeros_like(incs[0][2])
+        else:
+            s_pre, n_pre = (t.to(dev) for t in incs[i - 1][1:])
+        lb = torch.cumsum(lfi.to(f32), dim=1)                   # (B, s, H)
+        qf = (qi.to(f32) * torch.exp(lb)[..., None]).transpose(1, 2)
+        y = y_raw + (qf @ s_pre).transpose(1, 2)
+        if normalize:
+            nd = ndot + (qf @ n_pre[..., None])[..., 0].transpose(1, 2)
+            y = y / torch.clamp(nd.abs(), min=1.0)[..., None]
+        ys.append(y.to(v.dtype).to(home))
+    y = torch.cat(ys, dim=1)
+    if not return_state:
+        return y
+    _, s_fin, n_fin = incs[-1]
+    return y, RecurrentState(s_fin.to(home), n_fin.to(home))
+
+
+def glr_shardmapped(q: Tensor, k: Tensor, v: Tensor, log_f: Tensor,
+                    gate_i: Tensor, *, seq_axis: str, chunk: int = 256,
+                    normalize: bool = False, return_state: bool = False):
+    """:func:`glr_sequence_parallel` over the ambient mesh
+    (``sharding.mesh.set_mesh``). Raises without one, or when it lacks
+    ``seq_axis``, as the reference's ``shard_map`` does."""
+    mesh = mesh_lib.get_mesh()
+    if mesh is None:
+        raise ValueError("the sequence-parallel recurrence needs an ambient "
+                         "mesh (sharding.mesh.set_mesh): the context mesh "
+                         "cannot be empty")
+    if seq_axis not in mesh.axis_names:
+        raise ValueError(f"the ambient mesh has axes {mesh.axis_names}, not "
+                         f"{seq_axis!r}")
+    return glr_sequence_parallel(q, k, v, log_f, gate_i, mesh,
+                                 seq_axis=seq_axis, chunk=chunk,
+                                 normalize=normalize,
+                                 return_state=return_state)
+
+
 def glr_decode_step(q: Tensor, k: Tensor, v: Tensor, log_f: Tensor,
                     gate_i: Tensor, state: RecurrentState, *,
                     normalize: bool = False
@@ -225,10 +326,18 @@ def _mlstm_out(params: Params, x: Tensor, y: Tensor,
 
 
 def mlstm_block(params: Params, x: Tensor, heads: int, chunk: int,
-                compute_dtype: torch.dtype) -> Tensor:
-    """Sequence-mode mLSTM mixer (the pre-norm residual is the caller's)."""
+                compute_dtype: torch.dtype,
+                seq_axis: Optional[str] = None) -> Tensor:
+    """Sequence-mode mLSTM mixer (the pre-norm residual is the caller's).
+    ``seq_axis`` runs the recurrence sequence-parallel over that axis of
+    the ambient mesh (:func:`glr_shardmapped`)."""
     q, k, v, log_f, gate_i = _mlstm_gates(params, x, heads, compute_dtype)
-    y, _ = glr_chunked(q, k, v, log_f, gate_i, chunk=chunk, normalize=True)
+    if seq_axis is None:
+        y, _ = glr_chunked(q, k, v, log_f, gate_i, chunk=chunk,
+                           normalize=True)
+    else:
+        y = glr_shardmapped(q, k, v, log_f, gate_i, seq_axis=seq_axis,
+                            chunk=chunk, normalize=True)
     return _mlstm_out(params, x, y, compute_dtype)
 
 

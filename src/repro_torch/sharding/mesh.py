@@ -1,17 +1,20 @@
-"""One-axis device meshes and the shard arithmetic over them (the port's
-counterpart of ``jax.sharding.Mesh``, ``repro.compat.shard_map`` and
+"""Device meshes and the shard arithmetic over them (the port's counterpart
+of ``jax.sharding.Mesh``, ``jax.set_mesh``, ``repro.compat.shard_map`` and
 ``repro.launch.mesh.make_debug_mesh``).
 
 Every mesh path of the reference is single-controller: one Python process
 drives all of a host's devices through ``shard_map``, and reads every
 shard's result itself. The port keeps that design. A :class:`Mesh` is a
-tuple of ``torch.device`` under one axis name; :func:`split` cuts a leading
-axis into contiguous equal blocks, one per shard (the ``P(axis)`` layout),
-each moved to its shard's device; :func:`shard_map` runs a body once per
-shard, in shard order, in the calling thread; :func:`psum` is the merge, an
-exact int32 sum of the shards' parts on the mesh's first device, and
-:func:`gather` concatenates per-shard outputs there (``out_specs=P(axis)``).
-There are no process groups.
+row-major grid of ``torch.device`` under named axes, as
+``np.array(devices).reshape(shape)`` lays them out; most paths take a
+one-axis mesh. :func:`split` cuts a leading axis into contiguous equal
+blocks, one per shard (the ``P(axis)`` layout), each moved to its shard's
+device; :func:`shard_map` runs a body once per shard, in shard order, in
+the calling thread; :func:`psum` is the merge, an exact int32 sum of the
+shards' parts on the mesh's first device, and :func:`gather` concatenates
+per-shard outputs there (``out_specs=P(axis)``). There are no process
+groups. :func:`set_mesh` makes a mesh ambient for the code it encloses
+(the sequence-parallel recurrence reads it), as ``jax.set_mesh`` does.
 
 A device may repeat: ``Mesh(("cuda:0",) * 4)`` puts four shards on one
 card, the counterpart of the reference's forced host devices
@@ -22,7 +25,11 @@ caller names ``"cpu"``.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+import contextlib
+import math
+import threading
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Union)
 
 import torch
 
@@ -32,9 +39,15 @@ Tensor = torch.Tensor
 
 
 class Mesh:
-    """One named axis over a tuple of devices (repeats allowed)."""
+    """A row-major grid of devices (repeats allowed) under named axes.
 
-    def __init__(self, devices: Sequence[DeviceLike], axis: str = "data"):
+    ``axis`` is one name, or a tuple of names with ``shape`` their extents
+    (major first): device ``i`` of ``devices`` sits at the coordinates of
+    ``i`` in that grid. A one-axis mesh needs no ``shape``."""
+
+    def __init__(self, devices: Sequence[DeviceLike],
+                 axis: Union[str, Sequence[str]] = "data",
+                 shape: Optional[Sequence[int]] = None):
         devs = []
         for d in devices:
             if d is None:
@@ -48,27 +61,99 @@ class Mesh:
         if len({d.type for d in devs}) > 1:
             raise ValueError(f"a mesh's devices must be all cuda or all cpu; "
                              f"got {[str(d) for d in devs]}")
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        if not names or len(set(names)) != len(names):
+            raise ValueError(f"a mesh needs distinct axis names; got {names}")
+        if shape is None:
+            if len(names) != 1:
+                raise ValueError(f"a mesh of axes {names} needs their shape")
+            shape = (len(devs),)
+        shape = tuple(int(n) for n in shape)
+        if len(shape) != len(names) or math.prod(shape) != len(devs):
+            raise ValueError(f"{len(devs)} devices do not fill a grid of "
+                             f"shape {shape} over axes {names}")
         self.devices = tuple(devs)
-        self.axis = axis
+        self.axis_names = names
+        self.grid = shape
+
+    @property
+    def axis(self) -> str:
+        """The name of a one-axis mesh's axis (raises on a grid)."""
+        if len(self.axis_names) != 1:
+            raise ValueError(f"this path takes a one-axis mesh; the mesh has "
+                             f"axes {self.axis_names}")
+        return self.axis_names[0]
 
     @property
     def size(self) -> int:
-        """The number of shards."""
+        """The number of shards (devices, repeats counted)."""
         return len(self.devices)
 
     @property
-    def shape(self) -> dict:
-        """``{axis: size}``, as ``jax.sharding.Mesh.shape`` reads."""
-        return {self.axis: self.size}
+    def shape(self) -> Dict[str, int]:
+        """``{axis: size}`` in axis order, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.grid))
 
     @property
     def first(self) -> torch.device:
         """Where merged and gathered results live."""
         return self.devices[0]
 
+    def coords(self, i: int) -> Dict[str, int]:
+        """Device ``i``'s coordinate on every axis (row-major)."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names), reversed(self.grid)):
+            i, out[name] = divmod(i, n)
+        return {name: out[name] for name in self.axis_names}
+
+    def index(self, coords: Dict[str, int]) -> int:
+        """The position in ``devices`` of the device at ``coords`` (axes
+        left out: coordinate 0)."""
+        i = 0
+        for name, n in zip(self.axis_names, self.grid):
+            c = coords.get(name, 0)
+            if not 0 <= c < n:
+                raise IndexError(f"coordinate {c} out of range for axis "
+                                 f"{name!r} of size {n}")
+            i = i * n + c
+        return i
+
+    def along(self, axis: str, at: int = 0) -> List[torch.device]:
+        """The devices along ``axis``, in its order, at the other axes'
+        coordinates of device ``at`` (the first device's by default)."""
+        if axis not in self.axis_names:
+            raise KeyError(axis)
+        fixed = self.coords(at)
+        return [self.devices[self.index({**fixed, axis: c})]
+                for c in range(self.shape[axis])]
+
     def __repr__(self) -> str:
+        if len(self.axis_names) == 1:
+            return (f"Mesh({[str(d) for d in self.devices]}, "
+                    f"axis={self.axis!r})")
         return (f"Mesh({[str(d) for d in self.devices]}, "
-                f"axis={self.axis!r})")
+                f"axis={self.axis_names!r}, shape={self.grid})")
+
+
+_ambient = threading.local()
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Optional[Mesh]) -> Iterator[Optional[Mesh]]:
+    """Make ``mesh`` the ambient mesh of the enclosed code in this thread
+    (the counterpart of ``jax.set_mesh``); the previous one comes back on
+    exit."""
+    prev = getattr(_ambient, "mesh", None)
+    _ambient.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _ambient.mesh = prev
+
+
+def get_mesh() -> Optional[Mesh]:
+    """The ambient mesh (:func:`set_mesh`), or ``None``."""
+    return getattr(_ambient, "mesh", None)
 
 
 def make_debug_mesh(devices: Optional[Sequence[DeviceLike]] = None,

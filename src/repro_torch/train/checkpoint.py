@@ -8,7 +8,9 @@
     past a corrupt checkpoint to the previous intact one.
   * **Keep-k**: older checkpoints are removed; the newest ``keep`` stay.
   * **Elastic**: arrays are saved as host numpy at their logical shapes and
-    restored onto each template leaf's device and dtype.
+    restored onto each template leaf's device and dtype, or, with
+    ``shardings``, placed onto a target mesh (``sharding.specs``), whatever
+    the mesh that saved them: restore is elastic across topologies.
 
 One ``.npy`` per leaf, named by the CRC32 of the leaf's path
 (``tree.leaf_paths``: the port's ``blocks`` is a list, so names carry the
@@ -30,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding import specs
 from repro_torch.train import tree as tree_lib
 
 _MANIFEST = "manifest.json"
@@ -139,13 +142,19 @@ def newest_intact(directory: str):
     return None
 
 
-def restore(directory: str, template: Any
+def restore(directory: str, template: Any, shardings: Optional[Any] = None
             ) -> Optional[Tuple[int, Any, Dict[str, Any]]]:
     """Restore the newest intact checkpoint into ``template``'s structure.
 
     Each leaf comes back on its template leaf's device, cast to its dtype,
     and requiring gradients where the template leaf does (parameters stay
-    trainable); ``None`` subtrees stay ``None``.
+    trainable); ``None`` subtrees stay ``None``. ``template``'s leaves may
+    be meta tensors (shapes and dtypes only).
+
+    ``shardings``: a tree of ``sharding.specs.NamedSharding`` matching
+    ``template`` (``specs.named(mesh, specs)``). A leaf it names is placed
+    on that mesh by ``specs.device_put`` and comes back as a
+    ``ShardedTensor`` in the template's dtype: one block per device.
 
     Returns:
       ``(step, state, metadata)``, or ``None`` if no intact checkpoint
@@ -155,8 +164,13 @@ def restore(directory: str, template: Any
     if loaded is None:
         return None
     step, arrays, metadata = loaded
+    placed = ({} if shardings is None
+              else dict(tree_lib.leaf_paths(shardings)))
 
-    def build(name: str, leaf: torch.Tensor) -> torch.Tensor:
+    def build(name: str, leaf: torch.Tensor):
+        if name in placed:
+            return specs.ShardedTensor(arrays[name].to(leaf.dtype),
+                                       placed[name])
         out = arrays[name].to(device=leaf.device, dtype=leaf.dtype)
         return out.requires_grad_(True) if leaf.requires_grad else out
 

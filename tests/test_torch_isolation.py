@@ -40,6 +40,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.core.distributed",
                  "repro_torch.sharding.mesh",
                  "repro_torch.sharding.specs",
+                 "repro_torch.sharding.constraints",
+                 "repro_torch.sharding.pipeline",
+                 "repro_torch.launch.mesh",
+                 "repro_torch.train.compression",
                  "repro_torch.models.config",
                  "repro_torch.models.layers",
                  "repro_torch.models.attention",

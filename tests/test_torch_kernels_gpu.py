@@ -1452,3 +1452,124 @@ def test_moe_prefill_at_4096_tokens_on_the_card_matches_the_cpu(cuda):
     out_h, _ = moe.moe_ffn(host, x, **kw)
     np.testing.assert_allclose(out_c.cpu().numpy(), out_h.numpy(), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_glr_sequence_parallel_in_bf16_over_four_names_of_the_card(cuda):
+    """xlstm-1.3b's recurrence widths (4 heads of 512 x 1024) in bf16 over
+    4096 tokens, sequence-parallel at chunk 1024 over ``(cuda,) * 4`` on a
+    ``model`` axis, against the meshless recurrence on the card: each
+    output within one bf16 ulp (2^-7 relative) plus 1e-5 of the largest
+    (the spans' f32 sums run in another order), the final state within
+    1e-4 relative; gradients flow through every span and copy."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import ssm
+    from repro_torch.sharding.mesh import Mesh
+
+    resolve_device(cuda)
+    b, s, h, dk, dv = 1, 4096, 4, 512, 1024
+    rng = np.random.default_rng(5)
+    f = lambda *shape, scale=1.0: torch.from_numpy(
+        (scale * rng.normal(size=shape)).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+    q, k, v = f(b, s, h, dk), f(b, s, h, dk, scale=dk ** -0.5), f(b, s, h, dv)
+    log_f = torch.nn.functional.logsigmoid(
+        torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32)
+                         + 3.0)).to(cuda)
+    gate = torch.sigmoid(torch.from_numpy(
+        rng.normal(size=(b, s, h)).astype(np.float32))).to(cuda)
+    args = (q, k, v, log_f, gate)
+    mesh = Mesh([cuda] * 4, "model")
+    y, st = ssm.glr_sequence_parallel(*args, mesh, chunk=1024,
+                                      normalize=True, return_state=True)
+    y0, st0 = ssm.glr_chunked(*args, chunk=1024, normalize=True)
+    assert y.dtype == torch.bfloat16 and y.device.type == cuda.type
+    peak = float(y0.float().abs().max())
+    gap = (y.float() - y0.float()).abs()
+    assert bool((gap <= 2.0 ** -7 * y0.float().abs() + 1e-5 * peak).all())
+    for a, b0 in ((st.s, st0.s), (st.n, st0.n)):
+        assert float((a - b0).norm() / b0.norm()) <= 1e-4
+    grad_args = [a.detach().float().requires_grad_() for a in args]
+    yg = ssm.glr_sequence_parallel(*grad_args, mesh, chunk=1024,
+                                   normalize=True)
+    grads = torch.autograd.grad(yg.sum(), grad_args)
+    assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+               for g in grads)
+
+
+@pytest.mark.gpu
+def test_placement_and_gather_on_a_2x2_mesh_of_one_card(cuda):
+    """A tree of card tensors placed on ``(data 2, model 2)`` named on one
+    card: tuple entries, replicated dims and a bf16 leaf; each block a copy
+    of its own on the card, the bytes per device the specs' count, and the
+    gather bit for bit."""
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.mesh import Mesh
+    from repro_torch.sharding.specs import P
+
+    mesh = Mesh([cuda] * 4, ("data", "model"), (2, 2))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn((64, 48), generator=gen, device=cuda),
+            "e": torch.randn((32, 8), generator=gen, device=cuda).to(
+                torch.bfloat16),
+            "n": [torch.arange(12, device=cuda)]}
+    spec = {"w": P(("data", "model"), None), "e": P(None, "model"),
+            "n": [P()]}
+    placed = specs.device_put(tree, specs.named(mesh, spec))
+    assert all(b.device.type == cuda.type for x in
+               [placed["w"], placed["e"], placed["n"][0]] for b in x.blocks)
+    assert placed["w"].blocks[1].data_ptr() != tree["w"].data_ptr()
+    assert specs.shard_bytes(placed) == [64 * 48 * 4 // 4 + 32 * 4 * 2
+                                         + 12 * 8] * 4
+    back = specs.gather_tree(placed)
+    assert torch.equal(back["w"], tree["w"])
+    assert torch.equal(back["e"], tree["e"])
+    assert torch.equal(back["n"][0], tree["n"][0])
+
+
+@pytest.mark.gpu
+def test_compress_allreduce_on_the_card_matches_the_cpu(cuda):
+    """Two ``"pod"`` shards on ``(cuda,) * 2`` against the same run on
+    ``("cpu",) * 2``: the hash family is the same integer function on both
+    devices; the card's atomic adds order each bucket's sum anyhow, so each
+    pod's sketch is within ``(m + 1) 2^-24`` times its bucket's magnitude
+    sum of the CPU's, and the estimates agree away from the threshold
+    (within twice the largest such bound); the residual identity holds
+    exactly as computed on the card."""
+    from repro_torch.sharding.mesh import Mesh
+    from repro_torch.train import compression as comp
+
+    cfg = comp.SketchCompressorConfig(rows=5, cols=1 << 12,
+                                      top_k_fraction=0.01)
+    rng = np.random.default_rng(6)
+    host = [{"a": torch.from_numpy(rng.normal(size=(1000, 600)).astype(
+        np.float32)), "b": torch.from_numpy(rng.normal(size=(5000,)).astype(
+            np.float32)).to(torch.bfloat16)} for _ in range(2)]
+    card = [{k: v.to(cuda) for k, v in g.items()} for g in host]
+    n = 600_000 + 5000
+    flat = torch.cat([host[0]["a"].reshape(-1), host[0]["b"].float()])
+    sk_h = comp.sketch_vector(cfg, flat)
+    sk_c = comp.sketch_vector(cfg, flat.to(cuda)).cpu()
+    hashes = comp._hash_params(cfg, 0, n, torch.device("cpu"))
+    ones = (hashes[0], hashes[1].abs())
+    bound = (comp.sketch_vector(cfg, torch.ones(n), ones) + 1) * \
+        2.0 ** -24 * comp.sketch_vector(cfg, flat.abs(), ones)
+    assert bool(((sk_c - sk_h).abs() <= bound).all())
+
+    runs = {}
+    for key, dev, grads in (("host", "cpu", host), ("card", cuda, card)):
+        mesh = Mesh([dev] * 2, "pod")
+        states = [comp.init_state(g) for g in grads]
+        runs[key] = comp.compress_allreduce(cfg, grads, states, mesh)
+    (est_h, _), (est_c, st_c) = runs["host"], runs["card"]
+    e_h = torch.cat([est_h[0]["a"].reshape(-1), est_h[0]["b"].float()])
+    e_c = torch.cat([est_c[0]["a"].reshape(-1),
+                     est_c[0]["b"].float()]).cpu()
+    slack = 4 * float(bound.max())
+    thresh = float(e_h.abs()[e_h != 0].min())
+    clear = (e_h.abs() - thresh).abs() > slack
+    assert bool(((e_c != 0) == (e_h != 0))[clear].all())
+    assert float((e_c - e_h)[clear].abs().max()) <= slack + 2.0 ** -7 * \
+        float(e_h.abs().max())
+    for g, e, st in zip(card, est_c, st_c):
+        assert torch.equal(st.residual["a"], (g["a"] + 0.0) - e["a"] * 2.0)

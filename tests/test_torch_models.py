@@ -10,8 +10,9 @@ extraction agree with JAX's within 1e-4 absolute (the two frameworks sum
 the products in different orders; the largest difference seen is 8e-6).
 Registry contents and the analytic parameter counts of all 20 configs are
 equal exactly; the six non-dense configs (held against JAX in
-``test_torch_models_nondense.py``) raise when built with
-``sequence_parallel``, which waits for the LM's sharding.
+``test_torch_models_nondense.py``) build with ``sequence_parallel``, whose
+mLSTM recurrence runs over a mesh's ``model`` axis (held against JAX in
+``test_torch_sequence_parallel.py``).
 """
 
 import dataclasses
@@ -29,6 +30,8 @@ from repro_torch.configs import registry
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models import layers, model
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.sharding.mesh import Mesh, set_mesh
+from repro_torch.train import tree as tree_lib
 from torch_parity import CPU
 
 jax.config.update("jax_platform_name", "cpu")
@@ -293,21 +296,43 @@ def test_configs_and_counts_equal_jax(arch, smoke):
 
 @pytest.mark.parametrize("arch", NON_DENSE)
 def test_non_dense_configs_raise_at_build(arch):
-    # Every kind builds now; only the sequence-parallel recurrence
-    # (ssm.glr_shardmapped) waits for ROADMAP item 12d.
-    cfg = dataclasses.replace(registry.get_config(arch, smoke=True),
-                              sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        model.init_params(None, cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        model.init_decode_state(cfg, 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        interop.lm_params({}, cfg, CPU)
-    built = model.init_params(None, dataclasses.replace(
-        cfg, sequence_parallel=False), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        model.prefill(built, cfg, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int32)}, cache_len=8)
+    """The name is the earlier check's, from when ``sequence_parallel``
+    raised at build. Now each non-dense config builds with
+    ``sequence_parallel=True``, its decode state initialises and
+    ``interop.lm_params`` carries it. Under a ``model``-axis CPU mesh the
+    mLSTM model's forward equals the meshless forward within 1e-5 (f32:
+    the spans' sums run in another order) and raises without a mesh, as the
+    reference's does; a config without mLSTM blocks gives the meshless
+    result bit for bit."""
+    base = registry.get_config(arch, smoke=True)
+    cfg = dataclasses.replace(base, sequence_parallel=True)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device=CPU)
+    state = model.init_decode_state(cfg, 1, 8, device=CPU)
+    assert len(state) == cfg.num_cycles
+    carried = dict(tree_lib.leaf_paths(interop.lm_params(
+        interop.lm_params_to_numpy(params), cfg, CPU)))
+    own = dict(tree_lib.leaf_paths(params))
+    assert set(carried) == set(own)
+    assert all(torch.equal(carried[k], own[k]) for k in own)
+    gen = torch.Generator().manual_seed(1)
+    batch = ({"embeds": torch.randn((2, 32, cfg.d_model), generator=gen)}
+             if cfg.embeddings_provided else
+             {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                      generator=gen)})
+    if "cross_attn" in cfg.cycle:
+        batch["cross_states"] = torch.randn(
+            (2, cfg.cross_attn_tokens, cfg.d_model), generator=gen)
+    with torch.no_grad():
+        want, _ = model.forward(params, base, batch)
+        with set_mesh(Mesh([CPU] * 2, "model")):
+            got, _ = model.forward(params, cfg, batch)
+        if "mlstm" in cfg.cycle:
+            assert float((got - want).abs().max()) <= 1e-5
+            with pytest.raises(ValueError, match="ambient mesh"):
+                model.forward(params, cfg, batch)
+        else:
+            assert torch.equal(got, want)
 
 
 def test_tap_layers_are_validated(lms):
