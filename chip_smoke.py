@@ -268,9 +268,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
     chunking, with tokens/s; 2 train steps (finite gradient norms, the
     first loss within 2^-7 relative of the meshless loss).
 
+23. the tooling (no new kernel): in phase 20, one more gemma3-1b train
+    step (4 x 1024) under ``launch.op_analysis`` on the card, whose FLOPs
+    (bf16 and f32), bytes, least bytes and ops must equal the dry run's
+    count of the same cell on meta tensors (``launch.dryrun``, one card, one
+    microbatch) and whose counted peak must lie within 0.8-1.25x of the
+    allocator's peak over what was held; the same in phase 19 for
+    qwen2-7b's 4-lane decode step at cache 256; each step's one-card
+    roofline bound (``launch.roofline``: bf16 and f32 products at their
+    peaks, the least bytes over HBM) over its measured time (host clock
+    ending in a sync, and the profiler's device time) must stay at or below
+    1.05, printed with the model FLOP/s share, the dominant term and
+    hbm_bytes / min_bytes; after phase 22, the dry run of the ten configs at
+    decode_32k on one card, rendered as the roofline table; then the seven
+    examples of ``repro_torch.examples`` on the card, each held to its own
+    checks (served counters equal to the standalone build; the refusal
+    round and ledger of the private server; the quality bars of the
+    example tests; every served request completed; ``train_lm --smoke``'s
+    loss falling and its resume from step 10 giving the uninterrupted run's
+    losses bit for bit), with their kernel launches.
+
 The ``kernels`` line's launches are the main path's (phases 5, 7, 9, 10, 12,
-13, 16, 19, 21) plus phase 18's mesh runs (their meshless comparisons do not
-count). The last two lines are the card (nvidia-smi's name and power limit)
+13, 16, 19, 21, 23) plus phase 18's mesh runs (their meshless comparisons do
+not count). The last two lines are the card (nvidia-smi's name and power limit)
 and ``{"ok": true, "device": {...}}``. The run needs a CUDA card and the rest of
 the repository beside this file; without either it exits non-zero.
 """
@@ -1383,6 +1403,9 @@ def lm_phase(torch, np, dev, smi, counters, errs):
                                   name == "kernel 6", table_cells, smi)
     _engine_profile(torch, params, cfg, dev, prompts, smi)
     pipeline_phase(torch, dev, smi, params, cfg)
+    # Phase 23 (a, b): the decode step's counts on the card against the
+    # dry run's, and its bound against its times.
+    tooling_decode(torch, dev, smi, params, cfg)
     _log(f"[lm] phase 19 took {time.perf_counter() - t19:.1f} s; its peak "
          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
          f" GiB")
@@ -1679,6 +1702,10 @@ def train_phase(torch, np, dev, smi):
     _log("[train] a step's top kernels: " + "; ".join(
         f"{k[:100]} {ms:.1f} ms ({n})" for k, (ms, n) in by_time(names)[:10])
         + f" | {smi}")
+    # Phase 23 (a, b): one more step counted on the card against the dry
+    # run's count, and the bound against this phase's times.
+    tooling_train(torch, smi, cfg, tcfg, state, batch,
+                  statistics.median(record["ms"][1:]), busy)
     params = state.params
     del state  # phase 22's compression needs the parameters alone
     press_phase(torch, dev, smi, cfg, params, batch)
@@ -2753,6 +2780,297 @@ def seqpar_phase(torch, np, dev, smi):
         raise AssertionError("the sequence-parallel train step")
     _log(f"[seqpar] phase 22's sequence-parallel part took "
          f"{time.perf_counter() - t22:.1f} s")
+
+
+# -- phase 23: the tooling ----------------------------------------------------
+
+TOOL_COUNT_KEYS = ("flops", "flops:bf16", "flops:f32", "hbm_bytes",
+                   "min_bytes", "launches")
+TOOL_PEAK_BAND = (0.8, 1.25)   # op_analysis peak over the allocator's
+TOOL_SHARE_MAX = 1.05          # a bound over a measured time above: a bad count
+TOOL_DECODE_STEPS, TOOL_PROFILE_STEPS = 10, 3
+TOOL_TRAIN_LR = "1e-2"         # train_lm --smoke: the preset's lr moves too little
+
+
+def _counted_step(torch, fn, *args):
+    """``fn(*args)`` once under ``op_analysis`` on the card, and the
+    allocator's peak over what was allocated before it."""
+    import gc
+
+    from repro_torch.launch import op_analysis
+
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts = op_analysis.analyze(fn, *args)
+    torch.cuda.synchronize()
+    return counts, torch.cuda.max_memory_allocated() - held
+
+
+def _counts_against_dry_run(label, real, alloc_peak, cell, smi):
+    """Phase 23 (a): the card's counts equal the dry run's on meta tensors,
+    and the counted peak lies within ``TOOL_PEAK_BAND`` of the
+    allocator's."""
+    if not cell.ok:
+        raise AssertionError(f"{label}: the dry run failed: {cell.error}")
+    fake = cell.cost
+    differ = {k: (real[k], fake[k]) for k in TOOL_COUNT_KEYS
+              if real[k] != fake[k]}
+    ratio = real["peak_bytes"] / max(alloc_peak, 1)
+    _log(f"[tool] {label} counted on the card: " + ", ".join(
+        f"{k} {real[k]:.6g}" for k in TOOL_COUNT_KEYS) + f"; the dry run's "
+        f"meta count {'equal in every key' if not differ else differ}; "
+        f"peak_bytes {real['peak_bytes'] / 2**30:.3f} GiB against the "
+        f"allocator's {alloc_peak / 2**30:.3f} GiB over what was held "
+        f"({ratio:.3f}, band {TOOL_PEAK_BAND}) | {smi}")
+    if differ:
+        raise AssertionError(f"{label}: card and dry-run counts differ: "
+                             f"{differ}")
+    if not TOOL_PEAK_BAND[0] <= ratio <= TOOL_PEAK_BAND[1]:
+        raise AssertionError(f"{label}: counted peak {ratio:.3f} of the "
+                             f"allocator's")
+
+
+def _bound_against_times(label, counts, host_ms, device_ms, model_flops,
+                         smi):
+    """Phase 23 (b): the one-card roofline bound over the measured step."""
+    from repro_torch.launch import roofline
+
+    compute_ms = 1e3 * roofline.compute_seconds(counts)
+    memory_ms = 1e3 * counts["min_bytes"] / roofline.HBM_BW
+    bound_ms = max(compute_ms, memory_ms)
+    shares = {"host": bound_ms / host_ms, "device": bound_ms / device_ms}
+    mfu = model_flops / (host_ms / 1e3) / roofline.PEAK_BF16_FLOPS
+    _log(f"[tool] {label}: bound {bound_ms:.3f} ms (compute {compute_ms:.3f}"
+         f" ms = {counts['flops:bf16']:.4g} bf16 + {counts['flops:f32']:.4g}"
+         f" f32 FLOPs, memory {memory_ms:.3f} ms = {counts['min_bytes']:.4g}"
+         f" B; dominant {'compute' if compute_ms >= memory_ms else 'memory'}"
+         f"); measured {host_ms:.3f} ms host clock, {device_ms:.3f} ms of "
+         f"device work; bound / time {shares['host']:.4f} (host), "
+         f"{shares['device']:.4f} (device), limit {TOOL_SHARE_MAX}; model "
+         f"FLOP/s share {mfu:.4f} of the bf16 peak; hbm_bytes / min_bytes "
+         f"{counts['hbm_bytes'] / counts['min_bytes']:.2f}; "
+         f"{counts['launches']:.0f} ops | {smi}")
+    if max(shares.values()) > TOOL_SHARE_MAX:
+        raise AssertionError(f"{label}: the bound exceeds the measured time "
+                             f"({shares}): the count is wrong")
+    return shares
+
+
+def tooling_train(torch, smi, cfg, tcfg, state, batch, step_ms, device_ms):
+    """Phase 23 (a, b) on phase 20's state and batch: one more gemma3-1b
+    train step counted on the card against the dry run's count of the same
+    cell, then its bound against phase 20's times."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.train import train_step as ts
+
+    real, alloc = _counted_step(torch, ts.train_step, state, batch, cfg, tcfg)
+    shape = registry.ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
+                               TRAIN_BATCH, "train")
+    cell = dryrun.run_cell(TRAIN_ARCH, shape.name, "1",
+                           {"remat_group": cfg.remat_group}, shape=shape,
+                           microbatches=tcfg.microbatches,
+                           optimizer=tcfg.optimizer)
+    label = f"{TRAIN_ARCH} train step ({TRAIN_BATCH} x {TRAIN_SEQ})"
+    _counts_against_dry_run(label, real, alloc, cell, smi)
+    _bound_against_times(label, real, step_ms, device_ms,
+                         6.0 * cfg.param_count() * TRAIN_BATCH * TRAIN_SEQ,
+                         smi)
+
+
+def tooling_decode(torch, dev, smi, params, cfg):
+    """Phase 23 (a, b) on phase 19's model: one 4-lane decode step at cache
+    ``LM_CACHE`` counted on the card against the dry run's count, then its
+    bound against the step's host-clock and device times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model
+
+    state = model.init_decode_state(cfg, LM_SLOTS, LM_CACHE, dev)
+    inputs = {"tokens": torch.arange(LM_SLOTS, dtype=torch.int32,
+                                     device=dev)}
+    pos = torch.tensor(LM_CACHE // 2, dtype=torch.int32, device=dev)
+    step = lambda: model.decode_step(params, cfg, state, inputs, pos)
+    real, alloc = _counted_step(torch, model.decode_step, params, cfg, state,
+                                inputs, pos)
+    shape = registry.ShapeSpec(f"decode_{LM_SLOTS}x{LM_CACHE}", LM_CACHE,
+                               LM_SLOTS, "decode")
+    cell = dryrun.run_cell(LM_ARCH, shape.name, "1", shape=shape)
+    label = f"{LM_ARCH} decode step ({LM_SLOTS} lanes, cache {LM_CACHE})"
+    _counts_against_dry_run(label, real, alloc, cell, smi)
+    ms = []
+    for _ in range(TOOL_DECODE_STEPS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - start))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TOOL_PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+    device_ms = sum(us for _, us in _device_events(prof)) / 1e3 \
+        / TOOL_PROFILE_STEPS
+    _bound_against_times(label, real, statistics.median(ms[1:]), device_ms,
+                         2.0 * cfg.param_count() * LM_SLOTS, smi)
+
+
+def _example(module, argv):
+    """An example's ``main(argv)`` on the card; what it printed goes to one
+    log line."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = module.main(list(argv))
+    secs = time.perf_counter() - start
+    return out, secs, buf.getvalue().strip().splitlines()
+
+
+def tooling_phase(torch, dev, smi, counters):
+    """Phase 23 (c, d): the dry-run table of the ten configs at decode_32k
+    on one card, then the seven examples on the card with their checks.
+    Returns the examples' kernel launches."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import registry
+    from repro_torch.examples import (edge_regression, logistic_edge,
+                                      private_serving, quickstart, serve_lm,
+                                      serve_storm, train_lm)
+    from repro_torch.kernels import srp_hash as hash_kernel
+    from repro_torch.launch import dryrun, roofline
+
+    t23 = time.perf_counter()
+    results = {}
+    for arch in registry.ARCH_IDS:
+        res = dryrun.run_cell(arch, "decode_32k", "1")
+        if not res.ok:
+            raise AssertionError(f"dry run {arch} decode_32k: {res.error}")
+        results[f"{arch}|decode_32k|1"] = dataclasses.asdict(res)
+    for line in roofline.render(results, "1").splitlines():
+        if line.startswith(("|", "Counted")):
+            _log(f"[tool] dry run: {line}")
+    _log(f"[tool] dry run of the ten configs at decode_32k on one card in "
+         f"{time.perf_counter() - t23:.1f} s (shape-only, counted) | {smi}")
+
+    wrappers = dict(counters, srp_hash=hash_kernel.srp_hash)
+    scratch = ROOT / ".chip_scratch" / "tooling"
+    shutil.rmtree(scratch, ignore_errors=True)
+    card = ["--device", str(dev)]
+    total = {name: 0 for name in wrappers}
+    runs = (
+        ("quickstart", quickstart, card),
+        ("serve_storm", serve_storm, card),
+        ("logistic_edge", logistic_edge, card),
+        ("private_serving", private_serving, card),
+        ("edge_regression", edge_regression, card),
+        ("serve_lm", serve_lm, card),
+        ("train_lm whole", train_lm, card + [
+            "--smoke", "--lr", TOOL_TRAIN_LR, "--ckpt-dir",
+            str(scratch / "whole")]),
+        ("train_lm cut", train_lm, card + [
+            "--smoke", "--lr", TOOL_TRAIN_LR, "--stop-after", "10",
+            "--ckpt-dir", str(scratch / "cut")]),
+        ("train_lm resumed", train_lm, card + [
+            "--smoke", "--lr", TOOL_TRAIN_LR, "--ckpt-dir",
+            str(scratch / "cut")]),
+    )
+    outs = {}
+    for label, module, argv in runs:
+        for w in wrappers.values():
+            w.launches = 0
+        out, secs, printed = _example(module, argv)
+        used = {n: w.launches for n, w in wrappers.items() if w.launches}
+        for n, c in used.items():
+            total[n] += c
+        outs[label] = out
+        _log(f"[tool] example {label}: {secs:.2f} s, kernel launches {used}; "
+             f"it printed: {' / '.join(printed)[:900]}")
+
+    q = outs["quickstart"]
+    s = outs["serve_storm"]
+    lg = outs["logistic_edge"]
+    pv = outs["private_serving"]
+    ed = outs["edge_regression"]
+    sl = outs["serve_lm"]
+    whole, cut, resumed = (outs["train_lm whole"], outs["train_lm cut"],
+                           outs["train_lm resumed"])
+    losses = whole["losses"]
+    resume_diff = max(abs(a - b) for a, b in
+                      zip(cut["losses"] + resumed["losses"], losses))
+    checks = {
+        "quickstart: STORM MSE < 0.6 var(y), registry path < 0.6 var(ys), "
+        "cos to OLS > 0.5": (q["storm_mse"] < 0.6 * q["var_y"]
+                            and q["generic_mse"] < 0.6 * q["var_ys"]
+                            and q["cos"] > 0.5
+                            and q["sketch_bytes"] == 131072),
+        "serve_storm: served counters == the standalone build, 4 ticks, "
+        "4096 rows, 4 points, 2 traced bodies, MSE < 0.8 var(y)": (
+            s["same_counters"]
+            and (s["ticks"], s["rows_ingested"], s["points_served"],
+                 s["trace_count"]) == (4, 4096, 4, 2)
+            and all(m < 0.8 * v for m, v in zip(s["mse"], s["var_y"]))),
+        "logistic_edge: accuracies > 0.8, 1 traced body": (
+            min(lg["local_accuracy"] + lg["gateway_accuracy"]) > 0.8
+            and lg["trace_count"] == 1),
+        "private_serving: refused at round 5, not retryable, spent 1-4, "
+        "ledger {'0': 4.0}, 4 releases": (
+            pv["refused_at"] == 5 and pv["retryable"] is False
+            and [r["spent"] for r in pv["rounds"]] == [1, 2, 3, 4]
+            and pv["spent"] == {"0": 4.0} and pv["exhausted"] == [0]
+            and pv["releases"] == 4),
+        "edge_regression: 8 shards, n 4096, MSE < 0.6 var(ys), private "
+        "query within 0.1": (
+            (ed["devices"], ed["n"]) == (8, 4096)
+            and ed["mse"] < 0.6 * ed["var_ys"]
+            and abs(ed["private"] - ed["exact"]) < 0.1),
+        "serve_lm: every request completes with its 16 tokens": (
+            sl["completed"] == list(range(8))
+            and all(len(t) == 16 for t in sl["tokens"].values())),
+        "train_lm --smoke: the loss falls (final below the first five's "
+        "mean, the last five's mean below the first five's), resumes from "
+        "step 10 with the uninterrupted run's losses bit for bit": (
+            whole["steps_run"] == 20 and whole["final_loss"] < whole["first5"]
+            and sum(losses[-5:]) < sum(losses[:5])
+            and cut["steps_run"] == 10
+            and (resumed["resumed_from"], resumed["steps_run"]) == (10, 10)
+            and resumed["restores"] == 0
+            and cut["losses"] + resumed["losses"] == losses),
+    }
+    _log(f"[tool] examples: quickstart MSE {q['storm_mse']:.4f} (var y "
+         f"{q['var_y']:.4f}), registry {q['generic_mse']:.4f}, cos "
+         f"{q['cos']:.3f}; serve_storm MSE/var "
+         f"{[round(m / v, 3) for m, v in zip(s['mse'], s['var_y'])]}; "
+         f"logistic accuracies {lg['local_accuracy']} / "
+         f"{lg['gateway_accuracy']}; edge MSE {ed['mse']:.4f}, private "
+         f"{ed['private']:.4f} against {ed['exact']:.4f}; train_lm losses "
+         f"{[round(x, 4) for x in losses]}, resumed run "
+         f"{[round(x, 4) for x in resumed['losses']]}; the cut and resumed "
+         f"runs against the whole run: largest difference {resume_diff:.3g}")
+    failed = [name for name, ok in checks.items() if not ok]
+    _log(f"[tool] example checks: {len(checks) - len(failed)} of "
+         f"{len(checks)} hold" + (f"; FAILED: {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"example checks failed: {failed}")
+    for name in ("paired_hash_histogram", "sketch_query",
+                 "paired_hash_histogram_banked", "sketch_query_banked",
+                 "hash_histogram", "hash_histogram_banked"):
+        if not total[name]:
+            raise AssertionError(f"the examples launched no {name}")
+    if not total["sketch_query_f32"] + total["sketch_query_banked_f32"]:
+        raise AssertionError("the private server's fits launched no f32 "
+                             "query")
+    shutil.rmtree(scratch, ignore_errors=True)
+    _log(f"[tool] the examples' kernel launches: {total}; phase 23's "
+         f"examples and table took {time.perf_counter() - t23:.1f} s")
+    return total
 
 
 def main() -> int:
@@ -4860,6 +5178,10 @@ def main() -> int:
     # where their models live) ---------------------------------------------
     shard_rules_phase(dev, smi)
     seqpar_phase(torch, np, dev, smi)
+
+    # -- 23. tooling: the dry-run table on one card, the seven examples -----
+    for name, n in tooling_phase(torch, dev, smi, counters).items():
+        launches[name] += n
 
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"

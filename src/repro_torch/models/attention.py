@@ -259,8 +259,8 @@ def decode_attention(
 ) -> Tuple[Tensor, KVCache]:
     """One-token decode against a (possibly rolling) KV cache.
 
-    ``pos`` per lane (continuous batching) writes each lane's entry with a
-    masked select; a scalar ``pos`` writes one slot for every lane. For
+    ``pos`` per lane (continuous batching) scatters each lane's entry into
+    its slot; a scalar ``pos`` writes one slot for every lane. For
     windowed layers with ``T <= window`` the cache is a ring: the new entry
     lands at ``pos % T`` and each slot's absolute position is reconstructed
     for the validity mask.
@@ -277,10 +277,9 @@ def decode_attention(
     vn = v_new[:, 0].to(cache.v.dtype)[:, :, None, :]
     slot = torch.clamp(pos % t if is_ring else pos, 0, t - 1)
     if per_lane:
-        write = torch.arange(t, device=x.device)[None, :] == slot[:, None]
-        wm = write[:, None, :, None]                              # (B,1,T,1)
-        ck = torch.where(wm, kn, cache.k)
-        cv = torch.where(wm, vn, cache.v)
+        idx = slot.long()[:, None, None, None].expand(kn.shape)  # (B,KH,1,D)
+        ck = cache.k.scatter(2, idx, kn)
+        cv = cache.v.scatter(2, idx, vn)
     else:
         idx = slot.reshape(1).long()
         ck = cache.k.index_copy(2, idx, kn)

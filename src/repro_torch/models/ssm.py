@@ -63,21 +63,25 @@ def _glr_chunk(s: Tensor, n: Tensor, q: Tensor, k: Tensor, v: Tensor,
     """One chunk of the recurrence. ``q``, ``k`` ``(B, H, c, dk)``, ``v``
     ``(B, H, c, dv)``, ``lf``, ``gi`` ``(B, H, c)``, all f32; the carry
     ``s`` ``(B, H, dk, dv)``, ``n`` ``(B, H, dk)``. Returns ``(s_new, n_new,
-    y (B, H, c, dv), n_dot (B, H, c))``."""
+    y (B, H, c, dv), n_dot (B, H, c))``; ``n_dot`` is ``None`` unless
+    ``normalize`` or ``raw``."""
     c = q.shape[2]
     lb = torch.cumsum(lf, dim=-1)                               # (B, H, c)
     total = lb[..., -1]                                         # (B, H)
     qf = q * torch.exp(lb)[..., None]
     # Inter-chunk: the decayed queries against the carried state.
     inter = qf @ s
-    inter_n = (qf @ n[..., None])[..., 0]
     # Intra-chunk: decay-weighted attention on the causal triangle.
     ratio = lb[..., :, None] - lb[..., None, :]                 # (B, H, c, c)
     mask = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
     w = torch.exp(torch.where(mask, ratio, float("-inf")))
     a = (q @ k.transpose(-1, -2)) * w * gi[..., None, :]
     y = inter + a @ v
-    n_dot = inter_n + a.sum(dim=-1)
+    # The normalizer only where it is read (XLA drops the reference's
+    # unread one as dead code; eager code must skip it itself).
+    n_dot = None
+    if normalize or raw:
+        n_dot = (qf @ n[..., None])[..., 0] + a.sum(dim=-1)
     if normalize and not raw:
         y = y / torch.clamp(n_dot.abs(), min=1.0)[..., None]
     # The state update.

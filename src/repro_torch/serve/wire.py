@@ -166,6 +166,11 @@ class StormWireServer:
     def stop(self) -> None:
         self._stop.set()
         try:
+            # close() alone leaves the accept thread blocked in accept()
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
             self._listener.close()
         except OSError:
             pass

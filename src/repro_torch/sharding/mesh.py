@@ -15,6 +15,9 @@ shards' parts on the mesh's first device, and :func:`gather` concatenates
 per-shard outputs there (``out_specs=P(axis)``). There are no process
 groups. :func:`set_mesh` makes a mesh ambient for the code it encloses
 (the sequence-parallel recurrence reads it), as ``jax.set_mesh`` does.
+Every copy between shards that a collective would make on a mesh of
+distinct devices is reported to the listeners of :func:`note_transfer`
+(``launch.op_analysis`` counts them), also where two shards share a card.
 
 A device may repeat: ``Mesh(("cuda:0",) * 4)`` puts four shards on one
 card, the counterpart of the reference's forced host devices
@@ -169,6 +172,28 @@ def make_debug_mesh(devices: Optional[Sequence[DeviceLike]] = None,
     return Mesh(devices, axis)
 
 
+_transfer_listeners: List[Callable[[str, int], None]] = []
+
+
+def add_transfer_listener(fn: Callable[[str, int], None]) -> None:
+    """Call ``fn(kind, nbytes)`` for every transfer :func:`note_transfer`
+    reports (``kind`` an XLA collective's name, e.g. ``"all-reduce"``)."""
+    _transfer_listeners.append(fn)
+
+
+def remove_transfer_listener(fn: Callable[[str, int], None]) -> None:
+    _transfer_listeners.remove(fn)
+
+
+def note_transfer(kind: str, tensors: Sequence[Tensor]) -> None:
+    """Report that ``tensors`` cross from one shard to another as part of
+    the collective ``kind``."""
+    if _transfer_listeners:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        for fn in list(_transfer_listeners):
+            fn(kind, nbytes)
+
+
 def home_device(mesh: Optional[Mesh], device: DeviceLike) -> torch.device:
     """Where a mesh-aware entry point reads, merges and returns: ``device``
     resolved (``None``: the card), or with a mesh its first device, which
@@ -216,6 +241,7 @@ def psum(parts: Sequence[Tensor], mesh: Mesh) -> Tensor:
     for p in parts:
         if p.dtype.is_floating_point or p.dtype == torch.bool:
             raise ValueError(f"psum sums integer parts; got {p.dtype}")
+    note_transfer("all-reduce", parts[1:])
     out = parts[0].to(mesh.first, torch.int32, copy=True)
     for p in parts[1:]:
         out += p.to(mesh.first, torch.int32)
@@ -225,4 +251,5 @@ def psum(parts: Sequence[Tensor], mesh: Mesh) -> Tensor:
 def gather(parts: Sequence[Tensor], mesh: Mesh) -> Tensor:
     """Per-shard blocks concatenated in shard order on the mesh's first
     device (a leading-axis ``P(axis)`` output, read in one place)."""
+    note_transfer("all-gather", parts[1:])
     return torch.cat([p.to(mesh.first) for p in parts])

@@ -6,7 +6,8 @@ The reference writes the schedule as a ``shard_map`` with a
 ``collective_permute`` along the ``pipe`` axis; the port's single
 controller runs the same schedule over the axis's devices, in one thread:
 a step's stages run one after another, and the hand-over to the next
-stage is a copy to its device. Model-agnostic: any ``fn(stage_params, x)``
+stage is a copy to its device (reported as a ``collective-permute`` to
+``mesh.note_transfer``; the last stage's outputs as an ``all-gather``). Model-agnostic: any ``fn(stage_params, x)``
 block function works.
 """
 
@@ -16,7 +17,7 @@ from typing import Any, Callable, List, Sequence, Union
 
 import torch
 
-from repro_torch.sharding.mesh import Mesh
+from repro_torch.sharding.mesh import Mesh, note_transfer
 from repro_torch.train import tree as tree_lib
 
 Tensor = torch.Tensor
@@ -61,8 +62,12 @@ def pipeline_forward(fn: Callable[[Any, Tensor], Tensor],
             if not 0 <= mb < m:
                 continue  # a bubble
             inp = x[mb] if s == 0 else bufs[s - 1]
+            if s:
+                note_transfer("collective-permute", [inp])
             nxt[s] = fn(local[s], inp.to(dev))
             if s == n_stage - 1:
+                if s:
+                    note_transfer("all-gather", [nxt[s]])
                 outputs[mb] = nxt[s].to(mesh.first)
         bufs = nxt
     return torch.stack(outputs)

@@ -5,15 +5,15 @@ Parameters are leaf tensors with ``requires_grad``; gradients come from
 ``torch.autograd.grad`` through the remat forward of ``model.train_loss``.
 Microbatches run one after another, so the activation peak is one
 microbatch's; their gradients are summed in ``grad_dtype`` and scaled by
-``1/n``, as the reference's scan does. The update runs in place
-(``optimizer.apply``): the returned state holds the same tensors as the one
-passed in.
+``1/n`` (:func:`mean_of`), as the reference's scan does. The update runs
+in place (``optimizer.apply``): the returned state holds the same tensors
+as the one passed in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,6 +80,15 @@ def _value_and_grad(params: Any, cfg: ModelConfig, batch: Dict[str, Tensor],
                            for p, g in zip(leaves, grads)]
 
 
+def mean_of(loss_sum: Tensor, grads_sum: List[Tensor], params: Any,
+            microbatches: int) -> Tuple[Tensor, Any]:
+    """The sums over ``microbatches`` scaled by ``1/n``: the mean loss and
+    gradients (a tree like ``params``; the gradients scaled in place)."""
+    inv = 1.0 / microbatches
+    torch._foreach_mul_(grads_sum, inv)
+    return loss_sum * inv, tree_lib.unflatten(params, grads_sum)
+
+
 def loss_and_grads(params: Any, cfg: ModelConfig, batch: Dict[str, Tensor],
                    microbatches: int = 1, aux_weight: float = 0.01,
                    grad_dtype: str = "float32") -> Tuple[Tensor, Any]:
@@ -91,20 +100,26 @@ def loss_and_grads(params: Any, cfg: ModelConfig, batch: Dict[str, Tensor],
         return loss, tree_lib.unflatten(params, grads)
 
     acc_dtype = dtype_of(grad_dtype)
-    loss_sum = torch.zeros((), dtype=torch.float32,
-                           device=params["embed"].device)
-    acc = None
+    loss_sum = acc = None
     for mb in _split_microbatches(batch, microbatches):
         loss, grads = _value_and_grad(params, cfg, mb, aux_weight)
-        loss_sum = loss_sum + loss
         grads = [g.to(acc_dtype) for g in grads]
         if acc is None:
-            acc = grads  # 0 + g is g
+            loss_sum, acc = loss, grads  # 0 + g is g
         else:
+            loss_sum = loss_sum + loss
             torch._foreach_add_(acc, grads)
-    inv = 1.0 / microbatches
-    torch._foreach_mul_(acc, inv)
-    return loss_sum * inv, tree_lib.unflatten(params, acc)
+        del loss, grads
+    return mean_of(loss_sum, acc, params, microbatches)
+
+
+def apply_update(state: TrainStateT, grads: Any, tcfg: TrainConfig
+                 ) -> Tuple[TrainStateT, Dict[str, Tensor]]:
+    """The AdamW update of ``state`` by ``grads``, in place, and the step
+    counter advanced."""
+    params, opt, metrics = opt_lib.apply(tcfg.optimizer, state.params, grads,
+                                         state.opt)
+    return TrainStateT(params, opt, state.step + 1), metrics
 
 
 def train_step(state: TrainStateT, batch: Dict[str, Tensor],
@@ -116,7 +131,6 @@ def train_step(state: TrainStateT, batch: Dict[str, Tensor],
     loss, grads = loss_and_grads(
         state.params, cfg, batch, tcfg.microbatches, tcfg.aux_weight,
         grad_dtype=tcfg.optimizer.grad_dtype)
-    params, opt, metrics = opt_lib.apply(tcfg.optimizer, state.params, grads,
-                                         state.opt)
+    state, metrics = apply_update(state, grads, tcfg)
     metrics["loss"] = loss
-    return TrainStateT(params, opt, state.step + 1), metrics
+    return state, metrics

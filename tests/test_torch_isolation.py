@@ -58,7 +58,17 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.telemetry",
                  "repro_torch.telemetry.taps",
                  "repro_torch.telemetry.bridge",
-                 "repro_torch.telemetry.monitor"):
+                 "repro_torch.telemetry.monitor",
+                 "repro_torch.launch.op_analysis",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.roofline",
+                 "repro_torch.examples.quickstart",
+                 "repro_torch.examples.serve_storm",
+                 "repro_torch.examples.logistic_edge",
+                 "repro_torch.examples.private_serving",
+                 "repro_torch.examples.edge_regression",
+                 "repro_torch.examples.serve_lm",
+                 "repro_torch.examples.train_lm"):
         assert name in report["modules"]
         assert name in report["loaded"]
     leaked = [m for m in report["loaded"]

@@ -1,13 +1,25 @@
 """Shared helpers of the ``test_torch_*`` parity tests (and of
-``scripts/reference_quality.py``).
+``scripts/reference_quality.py`` and ``scripts/reference_outputs.py``).
 
 ``jax.random`` draws cannot be reproduced by torch, so these helpers draw
 what the JAX package draws (hash families, DFO sphere directions, refine
 samples, the margin losses' init noise, the tenants' keys) and hand the
-arrays to the port through ``repro_torch.interop``.
+arrays to the port through ``repro_torch.interop``. The reference's
+example outputs and ``hlo_analysis`` counts, slow to produce, are read from
+``tests/reference_outputs.json`` while the digest it was written under
+matches, and produced anew when it does not.
 """
 
 from __future__ import annotations
+
+import hashlib
+import importlib.metadata
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
@@ -189,3 +201,118 @@ def quality_cases(rows_a: int, rows_b: int):
     return (("airfoil-matched d=9 default", 0, rows_a, 9, 0.3, 30.0, default),
             ("d=40 small steps", 1, rows_b, 40, 0.2, 10.0, small),
             ("d=40 default", 1, rows_b, 40, 0.2, 10.0, default))
+
+
+# -- the reference's outputs ------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+REFERENCE_EXAMPLES = ("quickstart", "serve_storm", "logistic_edge",
+                      "private_serving")
+REFERENCE_OUTPUTS = ROOT / "tests" / "reference_outputs.json"
+COUNT_BATCH, COUNT_SEQ = 2, 64   # the op-count tests' smoke shapes
+
+
+def reference_key() -> str:
+    """A digest of everything the recorded reference outputs depend on: the
+    JAX package's sources, the four example scripts, and the versions of
+    jax, jaxlib and numpy."""
+    h = hashlib.sha256()
+    paths = sorted((ROOT / "src" / "repro").rglob("*.py")) + [
+        ROOT / "examples" / f"{name}.py" for name in REFERENCE_EXAMPLES]
+    for path in paths:
+        h.update(str(path.relative_to(ROOT)).encode())
+        h.update(path.read_bytes())
+    for dist in ("jax", "jaxlib", "numpy"):
+        h.update(f"{dist}=={importlib.metadata.version(dist)}".encode())
+    return h.hexdigest()
+
+
+def _recorded() -> Dict[str, Any]:
+    """``tests/reference_outputs.json`` if it was written for
+    :func:`reference_key` (the same sources and versions give the same
+    outputs), else nothing."""
+    if REFERENCE_OUTPUTS.exists():
+        stored = json.loads(REFERENCE_OUTPUTS.read_text())
+        if stored.get("key") == reference_key():
+            return stored
+    return {}
+
+
+def run_reference_examples(threads_each: int = 1) -> Dict[str, str]:
+    """Run the four reference examples as scripts, all at once, and return
+    what each printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS=str(threads_each))
+    if threads_each == 1:
+        env["XLA_FLAGS"] = "--xla_cpu_multi_thread_eigen=false"
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py")], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in REFERENCE_EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise RuntimeError(f"examples/{name}.py: {stderr[-2000:]}")
+            out[name] = stdout
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def reference_example_outputs() -> Dict[str, str]:
+    """What the four reference examples print: recorded, or run anew."""
+    return _recorded().get("examples") or run_reference_examples()
+
+
+def jax_prefill_flops(arch: str, b: int = COUNT_BATCH,
+                      s: int = COUNT_SEQ) -> float:
+    """``hlo_analysis``'s FLOPs of the reference's smoke prefill."""
+    from repro.configs import registry as jregistry
+    from repro.launch import hlo_analysis
+    from repro.models import model as jmodel
+
+    cfg = jregistry.get_config(arch, smoke=True)
+    params = jax.eval_shape(lambda k: jmodel.init_params(k, cfg),
+                            jax.random.PRNGKey(0))
+    batch = {"tokens": jax.ShapeDtypeStruct((b, s), jnp.int32)}
+    if "cross_attn" in cfg.cycle:
+        batch["cross_states"] = jax.ShapeDtypeStruct(
+            (b, cfg.cross_attn_tokens, cfg.d_model), jnp.float32)
+    text = jax.jit(lambda p, bt: jmodel.prefill(p, cfg, bt, cache_len=s)
+                   ).lower(params, batch).compile(
+                       compiler_options=FAST_XLA).as_text()
+    return hlo_analysis.analyze_text(text)["flops"]
+
+
+def jax_train_step_flops(arch: str, b: int = COUNT_BATCH,
+                         s: int = COUNT_SEQ) -> float:
+    """``hlo_analysis``'s FLOPs of the reference's smoke train step (its
+    default ``TrainConfig``: one microbatch)."""
+    from repro.configs import registry as jregistry
+    from repro.launch import hlo_analysis
+    from repro.train import train_step as jts
+
+    cfg = jregistry.get_config(arch, smoke=True)
+    tcfg = jts.TrainConfig()
+    state = jax.eval_shape(lambda k: jts.init_state(k, cfg, tcfg),
+                           jax.random.PRNGKey(0))
+    batch = {"tokens": jax.ShapeDtypeStruct((b, s), jnp.int32),
+             "labels": jax.ShapeDtypeStruct((b, s), jnp.int32)}
+    text = jax.jit(lambda st, bt: jts.train_step(st, bt, cfg, tcfg)).lower(
+        state, batch).compile(compiler_options=FAST_XLA).as_text()
+    return hlo_analysis.analyze_text(text)["flops"]
+
+
+COUNTERS = {"prefill": jax_prefill_flops, "train": jax_train_step_flops}
+
+
+def reference_flops(step: str, arch: str) -> float:
+    """The reference's count of ``step`` (``"prefill"`` or ``"train"``) at
+    the smoke shapes: recorded, or counted anew."""
+    recorded = _recorded().get("flops", {}).get(f"{step}|{arch}")
+    return recorded if recorded is not None else COUNTERS[step](arch)
