@@ -76,6 +76,17 @@ cohort's tables from the shards that hold them onto the gateway's device
 (the mesh's first). Finite-epsilon privacy is meshless-only, as in the
 reference. Without a mesh the gateway is one shard holding every tenant.
 
+**Tracing.** While :mod:`repro_torch.tracing` is on, ``tick_start`` is a
+span (``gateway.tick_start``, keyed by the tick) holding the wait for a
+staging buffer (``gateway.staging_wait``, only when it waits), the host's
+writes into the staging (``gateway.stage``) and the enqueueing of the copy
+and the tick bodies (``gateway.launch``); ``tick_finish`` holds the wait
+for the estimates (``gateway.wait``) and the fits (``gateway.fit``). An
+ingest request's submit to the tick that packs its last row is a
+``gateway.queue_wait`` span keyed by its rid, and the counters
+``gateway.h2d_bytes`` and ``gateway.rows_packed`` count what each tick
+copies to the device. None of it changes what the gateway serves.
+
 Correctness contract: a tenant's counters after any interleaving of ticks
 equal the lone ``sketch_dataset`` build of its stream bit for bit; query
 results equal standalone ``ops.query_theta_with_weights`` calls against the
@@ -94,6 +105,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import dfo, erm, fleet, losses, lsh
 from repro_torch.core import privacy as privacy_lib
 from repro_torch.core import sketch as sketch_lib
@@ -242,6 +254,7 @@ class TickReport:
 class _PendingIngest:
     req: IngestRequest
     cursor: int = 0
+    submitted_ns: int = 0  # tracing's stamp at submit, while it is on
 
 
 @dataclasses.dataclass
@@ -328,7 +341,8 @@ class _StagingRing:
         event = self._events[k]
         if event is not None and not event.query():
             self.waits += 1
-            event.synchronize()
+            with tracing.span("gateway.staging_wait"):
+                event.synchronize()
         return k
 
     def buffer(self, k: int) -> Tensor:
@@ -591,7 +605,9 @@ class StormGateway:
                                    self._pending_rows[req.tenant],
                                    z.shape[0], self.max_pending_rows)
             self._pending_rows[req.tenant] += z.shape[0]
-            self._ingest_q.append(_PendingIngest(dataclasses.replace(req, z=z)))
+            self._ingest_q.append(_PendingIngest(
+                dataclasses.replace(req, z=z),
+                submitted_ns=tracing.now() if tracing.on() else 0))
         else:
             th = np.asarray(req.thetas, np.float32)
             if th.ndim != 2 or th.shape[1] != self.dim:
@@ -787,12 +803,17 @@ class StormGateway:
             taken += take
             self._pending_rows[t] -= take
         remaining: Deque[_PendingIngest] = deque()
+        packed_ns = 0
         for st in self._ingest_q:
             if st.cursor < st.req.z.shape[0]:
                 remaining.append(st)
-            else:
-                done.append(IngestResult(st.req.rid, st.req.tenant,
-                                         st.req.z.shape[0]))
+                continue
+            done.append(IngestResult(st.req.rid, st.req.tenant,
+                                     st.req.z.shape[0]))
+            if st.submitted_ns:
+                packed_ns = packed_ns or tracing.now()
+                tracing.record("gateway.queue_wait", st.submitted_ns,
+                               packed_ns, st.req.rid)
         self._ingest_q = remaining
         return taken, done
 
@@ -838,9 +859,14 @@ class StormGateway:
         :class:`InflightTick` carries the unread estimates and the host
         bookkeeping :meth:`tick_finish` needs.
         """
+        with tracing.span("gateway.tick_start", self.ticks + 1):
+            return self._tick_start()
+
+    def _tick_start(self) -> InflightTick:
         self.ticks += 1
+        tick = self.ticks
         if not self._ingest_q and not self._query_q:
-            return InflightTick(tick=self.ticks, est=None, placements=[],
+            return InflightTick(tick=tick, est=None, placements=[],
                                 completes=[], ingest_done=[], rows=0,
                                 points=0, fits=self._gather_fits())
         shards = self._shards
@@ -849,10 +875,11 @@ class StormGateway:
         views = [[v.numpy() for v in self._views(host)] for host in hosts]
         rows, ingest_done = 0, []
         if self._ingest_q:
-            for host in hosts:
-                host[:self._zm_end].zero_()
-            rows, ingest_done = self._pack_ingest([v[0] for v in views],
-                                                  [v[1] for v in views])
+            with tracing.span("gateway.stage", tick):
+                for host in hosts:
+                    host[:self._zm_end].zero_()
+                rows, ingest_done = self._pack_ingest(
+                    [v[0] for v in views], [v[1] for v in views])
         plans: Dict[int, privacy_lib.ReadPlan] = {}
         refused: List[_PendingQuery] = []
         if self._private:
@@ -869,12 +896,13 @@ class StormGateway:
                  if plan.status == "refuse"})
         placements, completes = [], []
         if self._query_q:
-            for host in hosts:
-                host[self._zm_end:self._qm_end].zero_()
-            local, q_cap = self._local, self.query_slots
-            placements, completes = self._pack_queries(
-                [v[2].reshape(local, q_cap, self.dim) for v in views],
-                [v[3].reshape(local, q_cap) for v in views])
+            with tracing.span("gateway.stage", tick):
+                for host in hosts:
+                    host[self._zm_end:self._qm_end].zero_()
+                local, q_cap = self._local, self.query_slots
+                placements, completes = self._pack_queries(
+                    [v[2].reshape(local, q_cap, self.dim) for v in views],
+                    [v[3].reshape(local, q_cap) for v in views])
         completes = refused + completes
         for st, _, t, _, _ in placements:
             if t in plans and plans[t].status == "stale":
@@ -887,22 +915,26 @@ class StormGateway:
             if do_query:
                 hi = self._qm_end
                 if self._private:
-                    self._pack_releases(hosts[0], plans)
+                    with tracing.span("gateway.stage", tick):
+                        self._pack_releases(hosts[0], plans)
                     hi = self._end
-            ests = []
-            for sh, k, host in zip(shards, slots, hosts):
-                sh.flat[lo:hi].copy_(host[lo:hi], non_blocking=True)
-                sh.staging.copied(k)
-                ests.append(self._run_body(sh, do_ingest, do_query))
-            if self._private and do_query:
-                for slot, plan in plans.items():
-                    if plan.status == "fresh":
-                        self.private_view.mark_resident(
-                            self._privacy_key_of(slot))
-            if do_query:
-                est, ready = self._read_estimates(ests)
+            tracing.add("gateway.h2d_bytes", (hi - lo) * 4 * len(shards))
+            tracing.add("gateway.rows_packed", rows)
+            with tracing.span("gateway.launch", tick):
+                ests = []
+                for sh, k, host in zip(shards, slots, hosts):
+                    sh.flat[lo:hi].copy_(host[lo:hi], non_blocking=True)
+                    sh.staging.copied(k)
+                    ests.append(self._run_body(sh, do_ingest, do_query))
+                if self._private and do_query:
+                    for slot, plan in plans.items():
+                        if plan.status == "fresh":
+                            self.private_view.mark_resident(
+                                self._privacy_key_of(slot))
+                if do_query:
+                    est, ready = self._read_estimates(ests)
         points = sum(take for *_, take in placements)
-        return InflightTick(tick=self.ticks, est=est, placements=placements,
+        return InflightTick(tick=tick, est=est, placements=placements,
                             completes=completes, ingest_done=ingest_done,
                             rows=rows, points=points,
                             fits=self._gather_fits(), ready=ready)
@@ -1065,9 +1097,15 @@ class StormGateway:
         in dispatch order. The tick's fits run here, over the counters
         gathered behind its ingest.
         """
+        with tracing.span("gateway.tick_finish", inflight.tick):
+            return self._tick_finish(inflight)
+
+    def _tick_finish(self, inflight: InflightTick) -> TickReport:
         results: List[QueryResult] = []
-        for event in inflight.ready or ():
-            event.synchronize()
+        if inflight.ready:
+            with tracing.span("gateway.wait", inflight.tick):
+                for event in inflight.ready:
+                    event.synchronize()
         if inflight.est is not None:
             losses_ = inflight.est.numpy().reshape(self.tenants,
                                                    self.query_slots)
@@ -1079,7 +1117,10 @@ class StormGateway:
                                        status=st.status))
         self.rows_ingested += inflight.rows
         self.points_served += inflight.points
-        fits = self._fit_results(inflight.fits)
+        fits = []
+        if inflight.fits:
+            with tracing.span("gateway.fit", inflight.tick):
+                fits = self._fit_results(inflight.fits)
         self.fits_run += len(fits)
         return TickReport(tick=inflight.tick, results=results,
                           rows_ingested=inflight.rows,

@@ -23,7 +23,9 @@ release), ``fit_result`` (the cohort's ``(S, dim)`` thetas as the payload,
 per-member ``fleet_losses`` inline; ``"stale": true`` when a member trained
 from its cached release), ``ingest_ok`` (the request's last row reached the
 counters), ``error`` (validation, or with ``"backpressure": true`` an
-admission rejection: drain completions and retry), ``stats_reply``,
+admission rejection: drain completions and retry), ``stats_reply`` (the
+gateway's ``queue_stats``, with ``telemetry`` when a bridge is attached
+and ``trace``, the tracer's ``summary()``, while tracing is on),
 ``budget_reply``, and ``budget_exceeded``: the TERMINAL refusal of an
 exhausted tenant's query or fit (``"retryable": false``).
 
@@ -49,6 +51,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.serve.storm_gateway import (
     Backpressure, FitRequest, IngestRequest, QueryRequest, StormGateway,
 )
@@ -262,6 +265,8 @@ class StormWireServer:
                 stats = self.gateway.queue_stats()
                 if self.telemetry is not None:
                     stats["telemetry"] = self.telemetry.telemetry_stats()
+            if tracing.on():
+                stats["trace"] = tracing.summary()
             conn.send({"type": "stats_reply", "rid": rid, "stats": stats})
             return
         if kind == "budget":

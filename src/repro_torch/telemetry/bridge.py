@@ -13,6 +13,12 @@ rows bit for bit (the rows are standardized on the gateway's device by the
 same ops, and counters are order-free integer sums), and a probe fitted
 from the served counters equals the offline ``fit_probe_many`` bit for bit.
 
+While :mod:`repro_torch.tracing` is on, a flush is a span
+(``bridge.flush``) holding each tap's standardization
+(``bridge.standardize``), the readback of its rows (``bridge.readback``)
+and the gateway's drain (``bridge.drain``), inside which the gateway's own
+spans nest.
+
 The gateway is duck-typed (``submit``, ``run_until_idle``, ``sketch_of``,
 ``params``, ``tenants``, ``ticks``, ``paired``): both
 :class:`~repro_torch.serve.storm_gateway.StormGateway` and
@@ -27,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import probes, sketch as sketch_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.storm_gateway import FitRequest, IngestRequest
@@ -175,6 +182,10 @@ class TelemetryBridge:
         rows sent. A slot's first flush computes and freezes its moments.
         ``drain=True`` runs the gateway until idle, then notifies an
         attached monitor (one observed window)."""
+        with tracing.span("bridge.flush"):
+            return self._flush(model, drain)
+
+    def _flush(self, model: Optional[str], drain: bool) -> int:
         names = [model] if model is not None else list(self._models)
         total = 0
         for name in names:
@@ -187,14 +198,16 @@ class TelemetryBridge:
             feats_t = torch.from_numpy(feats).to(self.device)
             targets_t = torch.from_numpy(targets).to(self.device)
             for j, slot in enumerate(reg.slots):
-                rows, moments = probes.probe_rows(
-                    feats_t[j], targets_t, self.config,
-                    moments=self._moments[slot])
+                with tracing.span("bridge.standardize"):
+                    rows, moments = probes.probe_rows(
+                        feats_t[j], targets_t, self.config,
+                        moments=self._moments[slot])
                 if self._moments[slot] is None:
                     self._moments[slot] = moments
+                with tracing.span("bridge.readback"):
+                    z = rows.cpu().numpy()
                 self.gateway.submit(IngestRequest(
-                    rid=next(self._rids), tenant=slot,
-                    z=rows.cpu().numpy()))
+                    rid=next(self._rids), tenant=slot, z=z))
                 self._rows_ingested[slot] += rows.shape[0]
                 self._windows[slot] += 1
                 total += rows.shape[0]
@@ -202,7 +215,8 @@ class TelemetryBridge:
             return 0
         self.flushes += 1
         if drain:
-            self.gateway.run_until_idle()
+            with tracing.span("bridge.drain"):
+                self.gateway.run_until_idle()
             for name in names:
                 for slot in self._models[name].slots:
                     self._last_flush_tick[slot] = self.gateway.ticks

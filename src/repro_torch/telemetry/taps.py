@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import probes
 from repro_torch.models import layers, model
 from repro_torch.models.config import ModelConfig
@@ -127,9 +128,11 @@ def extract_tap_features(params, cfg: ModelConfig, batch, tap: TapConfig
                          ) -> Tuple[Tensor, Tensor]:
     """Offline taps over a token batch: ``(feats (num_taps, B, d) float32,
     targets (B,) float32)``, the targets from the last position's logits
-    (the decode step's next-token view)."""
+    (the decode step's next-token view); a ``taps.extract`` span while
+    :mod:`repro_torch.tracing` is on."""
     layers_idx = tap.resolve_layers(cfg)
-    hidden, resid = model.forward_taps(params, cfg, batch, layers_idx)
-    logits = layers.unembed(model.unembed_table(params, cfg),
-                            hidden[:, -1, :], hidden.dtype)
-    return _pool(resid, tap.pool), probe_target(logits, tap.target)
+    with tracing.span("taps.extract"):
+        hidden, resid = model.forward_taps(params, cfg, batch, layers_idx)
+        logits = layers.unembed(model.unembed_table(params, cfg),
+                                hidden[:, -1, :], hidden.dtype)
+        return _pool(resid, tap.pool), probe_target(logits, tap.target)

@@ -21,6 +21,7 @@ import pytest
 from repro.core import privacy as jprivacy
 from repro.serve import storm_gateway as jgw
 from repro.serve import wire as jwire
+from repro_torch import tracing
 from repro_torch.core.privacy import ReleasePolicy
 from repro_torch.launch.storm_serve import synth_traffic
 from repro_torch.serve.storm_gateway import (
@@ -321,6 +322,8 @@ class TestLoopback:
             server.stop()
 
     def test_stats_over_the_wire(self, hashes):
+        """The stats frame; while tracing is on it carries the tracer's
+        summary as ``trace``."""
         server, _ = _port_server(hashes)
         client = StormWireClient(*server.address)
         try:
@@ -330,7 +333,19 @@ class TestLoopback:
             assert stats["tenants"] == S and stats["rows_ingested"] == 4
             assert stats["trace_count"] <= 3
             assert stats["pending_depth"] == [0] * S
+            assert "trace" not in stats
+            tracing.reset()
+            tracing.enable()
+            client.ingest(1, 2, np.ones((3, D), np.float32) * 0.1)
+            assert client.recv()[0]["type"] == "ingest_ok"
+            trace = client.stats()["trace"]
+            assert trace["spans"]["gateway.tick_start"]["count"] >= 1
+            assert trace["spans"]["gateway.queue_wait"]["count"] == 1
+            assert trace["counters"]["gateway.rows_packed"] == 3
+            assert trace["dropped"] == 0
         finally:
+            tracing.disable()
+            tracing.reset()
             client.close()
             server.stop()
 
