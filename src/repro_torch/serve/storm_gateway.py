@@ -85,7 +85,9 @@ for the estimates (``gateway.wait``) and the fits (``gateway.fit``). An
 ingest request's submit to the tick that packs its last row is a
 ``gateway.queue_wait`` span keyed by its rid, and the counters
 ``gateway.h2d_bytes`` and ``gateway.rows_packed`` count what each tick
-copies to the device. None of it changes what the gateway serves.
+copies to the device, ``gateway.staged_bytes`` what its ingest stage
+wrote into the staging (rows, and mask entries set or cleared). None of it
+changes what the gateway serves.
 
 Correctness contract: a tenant's counters after any interleaving of ticks
 equal the lone ``sketch_dataset`` build of its stream bit for bit; query
@@ -322,14 +324,22 @@ class _StagingRing:
     On the card they are pinned, so the copy to the device is asynchronous;
     a buffer is handed out again only after the event recorded behind its
     last copy has passed.
+
+    The buffers start zeroed and their ingest halves are never zeroed
+    again: for each buffer the ring keeps each local tenant's fill (rows
+    packed) from that buffer's last ingest stage, and the next stage into
+    it clears only the mask slots that the old fill covered and the new one
+    does not (:meth:`clear_stale`). The mask stays exact; rows in masked
+    slots keep whatever an earlier tick left there.
     """
 
-    def __init__(self, size: int, device: torch.device):
+    def __init__(self, size: int, tenants: int, device: torch.device):
         self._device = device
         self._pinned = device.type == "cuda"
         self._bufs = [torch.zeros(size, dtype=torch.float32,
                                   pin_memory=self._pinned)
                       for _ in range(STAGING_SLOTS)]
+        self._fills = np.zeros((len(self._bufs), tenants), np.int64)
         self._events: List[Optional[torch.cuda.Event]] = [None] * len(
             self._bufs)
         self._next = 0
@@ -347,6 +357,18 @@ class _StagingRing:
 
     def buffer(self, k: int) -> Tensor:
         return self._bufs[k]
+
+    def clear_stale(self, k: int, zmask: np.ndarray, fill: np.ndarray) -> int:
+        """Clear buffer ``k``'s mask slots ``[fill[i], old fill[i])`` of
+        each local tenant ``i`` after a stage that filled ``[0, fill[i])``,
+        and keep ``fill`` as its fills; returns the slots cleared."""
+        old = self._fills[k]
+        cleared = 0
+        for i in np.flatnonzero(old > fill):
+            zmask[i, fill[i]:old[i]] = 0.0
+            cleared += int(old[i] - fill[i])
+        old[:] = fill
+        return cleared
 
     def copied(self, k: int) -> None:
         """Mark the end of buffer ``k``'s copy on the device's stream."""
@@ -371,7 +393,7 @@ class _Shard:
         self.w = gw.w.to(device)
         self.flat = torch.zeros(gw._end, dtype=torch.float32, device=device)
         self.zbuf, self.zmask, self.qbuf, self.qmask = gw._views(self.flat)
-        self.staging = _StagingRing(gw._end, device)
+        self.staging = _StagingRing(gw._end, tenants, device)
         # Tenant-major query slots: row i reads table i // Q (member-major
         # routing with member_map = arange(tenants)): in range by
         # construction, so the banked query takes it as checked and reads
@@ -720,7 +742,8 @@ class StormGateway:
         Narrow banks take the insert's narrow tile (int32 inside the
         kernel, one saturating cast) and add it saturating; increments are
         non-negative, so ``clamp(counts + clamp(tile))`` equals
-        ``clamp(counts + tile)``. Padded slots add ``int(0)``.
+        ``clamp(counts + tile)``. Masked slots may hold an earlier tick's
+        rows (the staging ring does not zero them) and add ``int(0)``.
         """
         insert = (ops.paired_hash_histogram_banked if self.paired
                   else ops.hash_histogram_banked)
@@ -784,7 +807,9 @@ class StormGateway:
     def _pack_ingest(self, zbufs: List[np.ndarray],
                      zmasks: List[np.ndarray]):
         """Pack queued rows into the shards' ingest views (per shard
-        ``(S_local, I, dim)`` and ``(S_local, I)``)."""
+        ``(S_local, I, dim)`` and ``(S_local, I)``) from slot 0 of each
+        tenant; returns the rows packed, the requests done and each
+        tenant's fill."""
         i_cap = self.ingest_slots
         fill = [0] * self.tenants
         taken = 0
@@ -815,7 +840,7 @@ class StormGateway:
                 tracing.record("gateway.queue_wait", st.submitted_ns,
                                packed_ns, st.req.rid)
         self._ingest_q = remaining
-        return taken, done
+        return taken, done, np.array(fill)
 
     def _pack_queries(self, qbufs: List[np.ndarray],
                       qmasks: List[np.ndarray]):
@@ -876,10 +901,13 @@ class StormGateway:
         rows, ingest_done = 0, []
         if self._ingest_q:
             with tracing.span("gateway.stage", tick):
-                for host in hosts:
-                    host[:self._zm_end].zero_()
-                rows, ingest_done = self._pack_ingest(
+                rows, ingest_done, fill = self._pack_ingest(
                     [v[0] for v in views], [v[1] for v in views])
+                staged = rows * (self.ingest_dim + 1)
+                for sh, k, v in zip(shards, slots, views):
+                    staged += sh.staging.clear_stale(
+                        k, v[1], fill[sh.lo:sh.lo + sh.tenants])
+            tracing.add("gateway.staged_bytes", staged * 4)
         plans: Dict[int, privacy_lib.ReadPlan] = {}
         refused: List[_PendingQuery] = []
         if self._private:

@@ -1140,6 +1140,53 @@ def test_gateway_tick_start_is_sync_free_and_equals_plain(cuda, paired):
     assert gws[0].trace_count == 3
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired,in_dim,s,slots", [
+    (True, 10, 16, 256),    # the zipf cell's rows (d = 9 and the target)
+    (True, 2563, 2, 64),    # the zamba2 bridge's: the wide body
+    (False, 12, 16, 256),   # single-sided, narrow body
+    (False, 2565, 2, 64),   # single-sided, wide body
+])
+def test_gateway_over_stale_planted_staging_equals_plain(cuda, paired, in_dim,
+                                                         s, slots):
+    """The staging ring zeroes no ingest half after construction: masked
+    slots keep an earlier tick's rows. With NaN, +-inf and +-1e30 planted
+    in every row slot of the buffer each tick reuses, and fills that grow,
+    shrink and go to 0 over three rounds of the ring, the kernels' gateway
+    counts what the plain versions' does, bit for bit, tick by tick."""
+    from repro_torch.core import lsh
+    from repro_torch.serve import storm_gateway as port_gw
+
+    dim = in_dim + 2 if paired else in_dim
+    gen = torch.Generator(device=cuda).manual_seed(in_dim)
+    params = lsh.init_srp(gen, 2048, 4, dim, device=cuda)
+    gws = [port_gw.StormGateway(params, s, paired=paired, query_slots=4,
+                                ingest_slots=slots, mode=mode, device=cuda)
+           for mode in ("kernel", "ref")]
+    rng = np.random.default_rng(in_dim)
+    garbage = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30], np.float32)
+    phases = [1.0, 0.6, 0.02, 0.0, 0.3, 1.0]
+    ticks = 3 * port_gw.STAGING_SLOTS + 1
+    for tick in range(ticks):
+        reqs = []
+        for t in range(s):
+            n = int(slots * phases[(tick + t) % len(phases)])
+            if n:
+                z = 0.3 * rng.normal(size=(n, in_dim)) / np.sqrt(in_dim)
+                reqs.append(port_gw.IngestRequest(
+                    rid=tick * s + t, tenant=t, z=z.astype(np.float32)))
+        for gw in gws:
+            for sh in gw._shards:
+                k = sh.staging._next
+                zbuf = gw._views(sh.staging.buffer(k))[0].numpy()
+                zbuf[...] = np.resize(np.roll(garbage, tick), zbuf.shape)
+            gw.submit_many(reqs)
+            gw.tick()
+        assert torch.equal(gws[0].bank.counts, gws[1].bank.counts), tick
+        assert torch.equal(gws[0].bank.n, gws[1].bank.n), tick
+    assert int(gws[0].bank.n.sum()) > 0
+
+
 # The LM probes' width: qwen2-7b's pooled hidden states (d_model = 3584)
 # plus the target column, hashed over d_model + 3 = 3587 dimensions with
 # R = 2048 and p = 4. Kernels 1 and 4 take the wide body there, kernels 2

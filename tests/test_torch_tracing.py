@@ -5,7 +5,8 @@ The tracer records nothing while off, nests spans per thread, counts what a
 full buffer drops and forgets everything on ``reset()``. With it on, a few
 pipelined gateway ticks record their stages under ``gateway.tick_start``,
 one ``gateway.queue_wait`` per ingest request and the bytes each tick
-copies to the device, and serve exactly what they serve with it off; a
+copies to the device and writes into its staging, and serve exactly what
+they serve with it off; a
 bridge flush nests its stages and sends the same rows. Under
 ``torch.profiler`` the tracer is on by itself, and its stamps lie inside
 the profiler's own host ranges: one clock.
@@ -25,6 +26,7 @@ from repro_torch.configs import registry
 from repro_torch.core import lsh, probes
 from repro_torch.device import generator
 from repro_torch.models import model
+from repro_torch.serve import storm_gateway as port_gw
 from repro_torch.serve.storm_gateway import (
     FitRequest, IngestRequest, QueryRequest, StormGateway, report_key,
 )
@@ -285,8 +287,58 @@ def test_gateway_counts_the_bytes_it_copies(hashes):
     want = sum(4 * (ingest_words * (rows > 0) + query_words * (points > 0))
                for _, rows, points, *_ in keys)
     rows = sum(k[1] for k in keys)
-    assert tracing.counters() == {"gateway.h2d_bytes": want,
-                                  "gateway.rows_packed": rows}
+    counters = tracing.counters()
+    assert counters.pop("gateway.staged_bytes") > 0  # the next test's
+    assert counters == {"gateway.h2d_bytes": want,
+                        "gateway.rows_packed": rows}
+
+
+def test_gateway_counts_the_bytes_it_stages(hashes):
+    """``gateway.staged_bytes`` a tick: float32 words of its rows and their
+    mask ones and of the mask slots it clears (those its buffer's last
+    ingest stage filled beyond this tick's fills). Queries stage nothing
+    into the ingest half and count nothing."""
+    tracing.enable()
+    gw = StormGateway(hashes, S, query_slots=Q_SLOTS, ingest_slots=I_SLOTS,
+                      device="cpu")
+    full = [I_SLOTS] * S
+    # Per tick: rows and query points a tenant. The ring's first round
+    # is full; the fifth tick reuses buffer 0 full again; the query-only
+    # eighth tick takes buffer 3 and leaves its fills alone.
+    ticks = [(full, None)] * port_gw.STAGING_SLOTS + [
+        (full, None), ([3, 0, 16, 9], None), ([5, 5, 5, 5], [1, 0, 4, 0]),
+        ([0] * S, [2, 0, 4, 0]), ([0, 0, 0, 1], None), ([16, 16, 0, 0], None),
+        ([1, 1, 1, 1], [0, 3, 0, 0]), ([2, 2, 2, 2], None)]
+    rng = np.random.default_rng(6)
+    old = np.zeros((port_gw.STAGING_SLOTS, S), np.int64)
+    k, rid, got, want = 0, 0, [], []
+    for rows, points in ticks:
+        for tenant in range(S):
+            if rows[tenant]:
+                gw.submit(IngestRequest(rid, tenant, (0.3 * rng.normal(
+                    size=(rows[tenant], D))).astype(np.float32)))
+                rid += 1
+            if points and points[tenant]:
+                gw.submit(QueryRequest(rid, tenant, rng.normal(
+                    size=(points[tenant], D)).astype(np.float32)))
+                rid += 1
+        before = tracing.counters().get("gateway.staged_bytes", 0)
+        gw.tick()
+        got.append(tracing.counters()["gateway.staged_bytes"] - before)
+        words = 0
+        if any(rows):
+            fill = np.array(rows)
+            words += (fill.sum() * (D + 1)
+                      + np.maximum(old[k] - fill, 0).sum())
+            old[k] = fill
+        want.append(4 * int(words))
+        k = (k + 1) % port_gw.STAGING_SLOTS
+    assert got == want
+    assert got[7] == 0  # the query-only tick
+    # A full tick into a buffer whose last fill was full clears nothing.
+    assert got[port_gw.STAGING_SLOTS] == 4 * S * I_SLOTS * (D + 1)
+    # [3, 0, 16, 9] into buffer 1 after a full tick clears 13 + 16 + 7.
+    assert got[5] == 4 * (28 * (D + 1) + 36)
 
 
 def test_tracing_changes_nothing_the_gateway_serves(hashes):
