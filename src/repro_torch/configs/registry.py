@@ -23,6 +23,7 @@ from repro_torch.configs import (
     llama32_vision_11b,
     mixtral_8x22b,
     musicgen_medium,
+    nemotron_3_nano_30b_a3b,
     phi35_moe,
     qwen2_7b,
     qwen3_32b,
@@ -45,6 +46,14 @@ _MODULES = {
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
+
+# The port's own configurations: the JAX package has no counterpart, so they
+# stay out of ARCH_IDS, which mirrors its registry, and out of the dry run's
+# cells. ``get_config`` serves them as any other.
+_PORT_MODULES = {
+    "nemotron-3-nano-30b-a3b": nemotron_3_nano_30b_a3b,
+}
+PORT_ARCH_IDS: Tuple[str, ...] = tuple(_PORT_MODULES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +79,7 @@ LONG_CONTEXT_ARCHS = frozenset(
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    mod = _MODULES[arch]
+    mod = _MODULES.get(arch) or _PORT_MODULES[arch]
     return mod.SMOKE if smoke else mod.CONFIG
 
 

@@ -12,7 +12,10 @@ state is the same kind of list: ``state[c]["pos{i}"]`` is that block's
 :class:`~.attention.KVCache` (attention kinds; a ``cross_attn`` cache holds
 the frontend states' projected keys and values),
 :class:`~.ssm.RecurrentState` (``mlstm``) or :class:`~.ssm.MambaState`
-(``mamba``).
+(``mamba``); an ``moe`` position holds ``None``.
+
+A config with a ``layer_pattern`` (NemotronH) is one cycle of all its
+layers: ``blocks[0]["pos{i}"]`` is layer ``i``, and taps name layers.
 
 Public entry points:
   * ``init_params(gen, cfg, device)``
@@ -56,8 +59,9 @@ from repro_torch.sharding.constraints import hint
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-_ATTN_KINDS = ("attn", "local_attn", "cross_attn", "shared_attn")
-_SELF_ATTN_KINDS = ("attn", "local_attn", "shared_attn")
+_ATTN_KINDS = ("attn", "local_attn", "cross_attn", "shared_attn",
+               "attn_only")
+_SELF_ATTN_KINDS = ("attn", "local_attn", "shared_attn", "attn_only")
 
 
 def _window(kind: str, cfg: ModelConfig) -> Optional[int]:
@@ -92,6 +96,8 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
         p["attn"] = attention.init_attention(
             gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.qkv_bias, cfg.qk_norm, pdt)
+        if kind == "attn_only":
+            return p  # no FFN after it
         if cfg.is_moe:
             p["ffn_norm"] = _zeros(d, pdt, dev)
             p["moe"] = moe.init_moe(gen, d, cfg.d_ff, cfg.num_experts, pdt)
@@ -104,7 +110,12 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
     elif kind == "mamba":
         p["mamba"] = ssm.init_mamba2(gen, d, cfg.ssm_expand,
                                      cfg.ssm_state_dim, cfg.ssm_heads,
-                                     cfg.ssm_conv_width, pdt)
+                                     cfg.ssm_conv_width, pdt,
+                                     d_inner=cfg.ssm_inner,
+                                     groups=cfg.ssm_groups)
+    elif kind == "moe":
+        p["moe"] = moe.init_dropless(gen, d, cfg.d_ff, cfg.num_experts,
+                                     cfg.moe_shared_d_ff, pdt)
     else:
         raise ValueError(kind)
     return p
@@ -180,8 +191,28 @@ def _apply_ffn(p: Params, x: Tensor, cfg: ModelConfig
     return hint(x + out.to(x.dtype), "residual"), aux
 
 
+def _mamba_kw(cfg: ModelConfig) -> Dict[str, Any]:
+    """Mamba2's group options: the B/C groups and, with the gate-then-group
+    norm, its eps."""
+    return dict(groups=cfg.ssm_groups,
+                group_norm_eps=cfg.norm_eps if cfg.ssm_group_norm else None)
+
+
+def _moe_mixer(p: Params, h: Tensor, cfg: ModelConfig, layer: int
+               ) -> Tensor:
+    """An ``moe`` block's mixer: the dropless layer; ``layer`` is its
+    position in the cycle (a pattern config's layer), its row of the
+    tracer's tally."""
+    return moe.dropless_moe(
+        p["moe"], h, experts_per_token=cfg.experts_per_token,
+        routed_scale=cfg.moe_routed_scale,
+        compute_dtype=layers.dtype_of(cfg.compute_dtype), layer=layer,
+        num_layers=len(cfg.cycle))
+
+
 def _mixer_seq(kind: str, p: Params, h: Tensor, positions: Tensor,
-               cross: Optional[Tensor], cfg: ModelConfig) -> Tensor:
+               cross: Optional[Tensor], cfg: ModelConfig,
+               layer: int = 0) -> Tensor:
     cdt = layers.dtype_of(cfg.compute_dtype)
     common = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                   head_dim=cfg.head_dim, chunk=cfg.attn_chunk,
@@ -201,19 +232,24 @@ def _mixer_seq(kind: str, p: Params, h: Tensor, positions: Tensor,
                                               else None))
     if kind == "mamba":
         return ssm.mamba2_block(p["mamba"], h, cfg.ssm_heads,
-                                cfg.ssm_state_dim, cfg.attn_chunk, cdt)
+                                cfg.ssm_state_dim, cfg.ssm_chunk_len, cdt,
+                                **_mamba_kw(cfg))
+    if kind == "moe":
+        return _moe_mixer(p, h, cfg, layer)
     raise ValueError(kind)
 
 
 def _apply_block_seq(kind: str, p: Params, shared: Optional[Params],
                      x: Tensor, positions: Tensor, cross: Optional[Tensor],
-                     cfg: ModelConfig) -> Tuple[Tensor, Optional[Tensor]]:
+                     cfg: ModelConfig, layer: int = 0
+                     ) -> Tuple[Tensor, Optional[Tensor]]:
     """One block: pre-norm mixer and residual, then the FFN sublayer.
-    Returns ``(x, aux or None)``."""
+    Returns ``(x, aux or None)``; ``layer`` is the block's position in the
+    cycle."""
     if kind == "shared_attn":
         p = shared
     h = layers.rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    out = _mixer_seq(kind, p, h, positions, cross, cfg)
+    out = _mixer_seq(kind, p, h, positions, cross, cfg, layer)
     return _apply_ffn(p, hint(x + out.to(x.dtype), "residual"), cfg)
 
 
@@ -239,30 +275,35 @@ def _embed_batch(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
 
 
 def _cycle(x: Tensor, aux: Tensor, cycle: Params, shared: Optional[Params],
-           positions: Tensor, cross: Optional[Tensor], cfg: ModelConfig
+           positions: Tensor, cross: Optional[Tensor], cfg: ModelConfig,
+           c: int = 0, keep: Tuple[int, ...] = (),
+           kept: Optional[Dict[int, Tensor]] = None
            ) -> Tuple[Tensor, Tensor]:
-    """One cycle of blocks over the residual stream, adding each MoE
-    layer's auxiliary loss to ``aux``."""
+    """Cycle ``c`` of blocks over the residual stream, adding each MoE
+    layer's auxiliary loss to ``aux``; the residual at each tap point
+    (``cfg.tap_point``) named in ``keep`` goes into ``kept``."""
     for i, kind in enumerate(cfg.cycle):
         x, a = _apply_block_seq(kind, cycle[f"pos{i}"], shared, x, positions,
-                                cross, cfg)
+                                cross, cfg, i)
         if a is not None:
             aux = aux + a
+        if keep and cfg.tap_point(c, i) in keep:
+            kept[cfg.tap_point(c, i)] = x
     return x, aux
 
 
 def _cycles_seq(params: Params, cfg: ModelConfig, x: Tensor,
-                positions: Tensor, cross: Optional[Tensor]
-                ) -> Tuple[List[Tensor], Tensor]:
-    """The residual stream after each cycle (the last is the output) and
-    the summed auxiliary loss."""
+                positions: Tensor, cross: Optional[Tensor],
+                keep: Tuple[int, ...] = ()
+                ) -> Tuple[Tensor, Dict[int, Tensor], Tensor]:
+    """The residual stream's output, the residuals at the tap points named
+    in ``keep`` (and no others), and the summed auxiliary loss."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    resid = []
-    for cycle in params["blocks"]:
+    kept: Dict[int, Tensor] = {}
+    for c, cycle in enumerate(params["blocks"]):
         x, aux = _cycle(x, aux, cycle, params.get("shared"), positions,
-                        cross, cfg)
-        resid.append(x)
-    return resid, aux
+                        cross, cfg, c, keep, kept)
+    return x, kept, aux
 
 
 def apply_cycles(cycles: List[Params], cfg: ModelConfig, x: Tensor,
@@ -380,8 +421,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     if remat:
         x, aux = _cycles_remat(params, cfg, x, positions, cross)
     else:
-        resid, aux = _cycles_seq(params, cfg, x, positions, cross)
-        x = resid[-1]
+        x, _, aux = _cycles_seq(params, cfg, x, positions, cross)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -389,7 +429,14 @@ def train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
                aux_weight: float = 0.01) -> Tensor:
     """The chunked next-token cross-entropy of the remat forward plus
     ``aux_weight`` times its auxiliary loss. With tied embeddings the
-    gradient reaches ``embed`` through both uses."""
+    gradient reaches ``embed`` through both uses. A config with ``moe``
+    blocks raises: their grouped expert products have no backward in the
+    port."""
+    if "moe" in cfg.cycle:
+        raise NotImplementedError(
+            f"{cfg.name}: training is not supported: the dropless MoE's "
+            f"grouped expert products (torch._grouped_mm in "
+            f"moe.dropless_moe) have no backward in the port")
     hidden, aux = forward(params, cfg, batch, remat=True)
     mask = batch.get("loss_mask")
     loss = layers.chunked_softmax_xent(
@@ -400,13 +447,15 @@ def train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
 
 
 def _check_tap_layers(tap_layers, cfg: ModelConfig) -> Tuple[int, ...]:
+    """Tap indices: cycles, or a pattern config's layers
+    (``cfg.tap_points``)."""
     taps = tuple(int(t) for t in tap_layers)
     if not taps:
         raise ValueError("tap_layers must name at least one cycle")
-    bad = [t for t in taps if not 0 <= t < cfg.num_cycles]
+    bad = [t for t in taps if not 0 <= t < cfg.tap_points]
     if bad:
         raise ValueError(
-            f"tap_layers {bad} out of range [0, {cfg.num_cycles}) for "
+            f"tap_layers {bad} out of range [0, {cfg.tap_points}) for "
             f"{cfg.name}"
         )
     return taps
@@ -416,14 +465,15 @@ def forward_taps(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
                  tap_layers) -> Tuple[Tensor, Tensor]:
     """Sequence-mode tap extraction: ``(hidden (B, S, d), taps (num_taps, B,
     S, d) float32)``, ``taps[j]`` the residual stream after cycle
-    ``tap_layers[j]`` (the full-sequence twin of the tapped
-    :func:`decode_step`)."""
+    ``tap_layers[j]`` (a pattern config's layer; the full-sequence twin of
+    the tapped :func:`decode_step`). Only the tapped residuals are kept."""
     tap_layers = _check_tap_layers(tap_layers, cfg)
     x, positions, cross = _embed_batch(params, cfg, batch)
-    resid, _ = _cycles_seq(params, cfg, hint(x, "residual"), positions,
-                           cross)
-    hidden = layers.rms_norm(resid[-1], params["final_norm"], cfg.norm_eps)
-    taps = torch.stack([resid[j] for j in tap_layers]).to(torch.float32)
+    x = hint(x, "residual")
+    final, kept, _ = _cycles_seq(params, cfg, x, positions, cross,
+                                 tap_layers)
+    hidden = layers.rms_norm(final, params["final_norm"], cfg.norm_eps)
+    taps = torch.stack([kept[j] for j in tap_layers]).to(torch.float32)
     return hidden, taps
 
 
@@ -456,7 +506,11 @@ def _block_state(kind: str, cfg: ModelConfig, b: int, cache_len: int,
     if kind == "mamba":
         return ssm.mamba_state_shape(b, cfg.d_model, cfg.ssm_expand,
                                      cfg.ssm_state_dim, cfg.ssm_heads,
-                                     cfg.ssm_conv_width, dev)
+                                     cfg.ssm_conv_width, dev,
+                                     d_inner=cfg.ssm_inner,
+                                     groups=cfg.ssm_groups)
+    if kind == "moe":
+        return None
     raise ValueError(kind)
 
 
@@ -487,7 +541,8 @@ def _cross_decode(p: Params, h: Tensor, cache: attention.KVCache,
 
 
 def _apply_block_decode(kind: str, p: Params, shared: Optional[Params],
-                        state, x: Tensor, pos: Tensor, cfg: ModelConfig):
+                        state, x: Tensor, pos: Tensor, cfg: ModelConfig,
+                        layer: int = 0):
     cdt = layers.dtype_of(cfg.compute_dtype)
     if kind == "shared_attn":
         p = shared
@@ -505,7 +560,10 @@ def _apply_block_decode(kind: str, p: Params, shared: Optional[Params],
                                       cdt)
     elif kind == "mamba":
         out, state = ssm.mamba2_decode(p["mamba"], h, state, cfg.ssm_heads,
-                                       cfg.ssm_state_dim, cdt)
+                                       cfg.ssm_state_dim, cdt,
+                                       **_mamba_kw(cfg))
+    elif kind == "moe":
+        out = _moe_mixer(p, h, cfg, layer)
     else:
         raise ValueError(kind)
     x, _ = _apply_ffn(p, x + out.to(x.dtype), cfg)
@@ -518,10 +576,11 @@ def decode_step(params: Params, cfg: ModelConfig, state, inputs:
     (B, 1, d)}``; ``pos`` is ``(B,)`` per lane or a scalar. Returns
     ``(logits (B, vocab), new state)``.
 
-    ``tap_layers`` (cycle indices) adds a third element, ``taps (num_taps,
-    B, 1, d) float32``: the residual stream after each named cycle, before
-    the final norm. Taps copy values the untapped step computes anyway, so
-    logits and state are bit-identical with and without them.
+    ``tap_layers`` (cycle indices; a pattern config's layers) adds a third
+    element, ``taps (num_taps, B, 1, d) float32``: the residual stream
+    after each named cycle or layer, before the final norm. Taps copy
+    values the untapped step computes anyway, so logits and state are
+    bit-identical with and without them.
     """
     cdt = layers.dtype_of(cfg.compute_dtype)
     dev = params["embed"].device
@@ -533,21 +592,22 @@ def decode_step(params: Params, cfg: ModelConfig, state, inputs:
     pos = torch.as_tensor(pos, device=dev)
     shared = params.get("shared")
     taps = None if tap_layers is None else _check_tap_layers(tap_layers, cfg)
-    new_state, resid = [], []
-    for cycle, cycle_state in zip(params["blocks"], state):
+    new_state, kept = [], {}
+    for c, (cycle, cycle_state) in enumerate(zip(params["blocks"], state)):
         ns = {}
         for i, kind in enumerate(cfg.cycle):
             x, ns[f"pos{i}"] = _apply_block_decode(
                 kind, cycle[f"pos{i}"], shared, cycle_state[f"pos{i}"], x,
-                pos, cfg)
+                pos, cfg, i)
+            if taps and cfg.tap_point(c, i) in taps:
+                kept[cfg.tap_point(c, i)] = x
         new_state.append(ns)
-        resid.append(x)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(unembed_table(params, cfg), x[:, 0, :], cdt)
     if taps is None:
         return logits, new_state
     return logits, new_state, torch.stack(
-        [resid[j] for j in taps]).to(torch.float32)
+        [kept[j] for j in taps]).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -635,13 +695,18 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
                 out = ssm._mlstm_out(pp, h, y, cdt)
             elif kind == "mamba":
                 pp = p["mamba"]
+                mkw = _mamba_kw(cfg)
                 q, k, v, lf, dt, z, hist = ssm._mamba_core_inputs(
-                    pp, h, cfg.ssm_heads, cfg.ssm_state_dim, cdt)
+                    pp, h, cfg.ssm_heads, cfg.ssm_state_dim, cdt,
+                    groups=mkw["groups"])
                 y, rec = ssm.glr_chunked(q, k, v, lf, dt,
-                                         chunk=cfg.attn_chunk,
+                                         chunk=cfg.ssm_chunk_len,
                                          normalize=False)
-                out = ssm._mamba_out(pp, y, v, z, cdt)
+                out = ssm._mamba_out(pp, y, v, z, cdt, **mkw)
                 st[f"pos{i}"] = ssm.MambaState(ssm=rec, conv=hist)
+            elif kind == "moe":
+                out = _moe_mixer(p, h, cfg, i)
+                st[f"pos{i}"] = None
             else:
                 raise ValueError(kind)
             x, _ = _apply_ffn(p, hint(x + out.to(x.dtype), "residual"), cfg)

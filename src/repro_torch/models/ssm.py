@@ -377,27 +377,30 @@ class MambaState(NamedTuple):
 
 
 def init_mamba2(gen: torch.Generator, d: int, expand: int, state_dim: int,
-                heads: int, conv_width: int, dtype: torch.dtype) -> Params:
+                heads: int, conv_width: int, dtype: torch.dtype,
+                d_inner: Optional[int] = None, groups: int = 1) -> Params:
     """The Mamba2 mixer's weights: separate input projections (``w_x``,
     ``w_z``, ``w_bc``, ``w_dt``) and conv filters, ``A = -exp(a_log)`` from
-    -1 to -16 over the heads, ``dt`` biased to softplus^-1(0.01)."""
-    d_inner = d * expand
+    -1 to -16 over the heads, ``dt`` biased to softplus^-1(0.01).
+    ``d_inner`` defaults to ``d * expand``; ``w_bc`` gives ``groups`` B
+    blocks of ``state_dim``, then as many C blocks."""
+    d_inner = d * expand if d_inner is None else d_inner
     if (d_inner // heads) * heads != d_inner:
         raise ValueError(f"d_inner {d_inner} is not a multiple of {heads} "
                          f"heads")
+    bc = 2 * groups * state_dim
     s = d ** -0.5
     dev = gen.device
     zeros = lambda n: torch.zeros((n,), dtype=dtype, device=dev)
     return {
         "w_x": layers.normal((d, d_inner), s, dtype, gen),
         "w_z": layers.normal((d, d_inner), s, dtype, gen),
-        "w_bc": layers.normal((d, 2 * state_dim), s, dtype, gen),
+        "w_bc": layers.normal((d, bc), s, dtype, gen),
         "w_dt": layers.normal((d, heads), s, dtype, gen),
         "conv_x_w": layers.normal((conv_width, d_inner), 0.1, dtype, gen),
         "conv_x_b": zeros(d_inner),
-        "conv_bc_w": layers.normal((conv_width, 2 * state_dim), 0.1, dtype,
-                                   gen),
-        "conv_bc_b": zeros(2 * state_dim),
+        "conv_bc_w": layers.normal((conv_width, bc), 0.1, dtype, gen),
+        "conv_bc_b": zeros(bc),
         "a_log": torch.log(torch.linspace(1.0, 16.0, heads, device=dev)
                            ).to(dtype),
         "dt_bias": torch.log(torch.expm1(torch.full((heads,), 0.01,
@@ -423,12 +426,23 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor,
     return y + b[None, None, :], xh[:, -(width - 1):, :]
 
 
+def _per_head(m: Tensor, groups: int, heads: int) -> Tensor:
+    """``(B, S, groups * N)`` -> ``(B, S, heads, N)``: head ``h`` reads group
+    ``h // (heads / groups)``. One group is a view (stride 0 over the
+    heads); more groups copy."""
+    b, s, w = m.shape
+    n = w // groups
+    return m.reshape(b, s, groups, 1, n).expand(
+        b, s, groups, heads // groups, n).flatten(2, 3)
+
+
 def _mamba_core_inputs(params: Params, x: Tensor, heads: int, state_dim: int,
                        compute_dtype: torch.dtype,
-                       conv_history: Optional[Tensor] = None):
-    """The recurrence's inputs: ``q = C``, ``k = B`` (one group, shared by
-    the heads), ``v`` the conv'd channels, ``log_f = dt * A``, ``dt``, the
-    gate ``z`` and the new conv history."""
+                       conv_history: Optional[Tensor] = None,
+                       groups: int = 1):
+    """The recurrence's inputs: ``q = C``, ``k = B`` (each of ``groups``
+    groups shared by ``heads / groups`` heads), ``v`` the conv'd channels,
+    ``log_f = dt * A``, ``dt``, the gate ``z`` and the new conv history."""
     b, s, _ = x.shape
     d_inner = params["w_x"].shape[1]
     headdim = d_inner // heads
@@ -451,54 +465,69 @@ def _mamba_core_inputs(params: Params, x: Tensor, heads: int, state_dim: int,
     new_hist = torch.cat([new_hx, new_hbc], dim=-1)
     xi = F.silu(conv_x).reshape(b, s, heads, headdim)
     conv_bc = F.silu(conv_bc)
-    bmat = conv_bc[..., :state_dim]
-    cmat = conv_bc[..., state_dim:]
+    gn = groups * state_dim
     dt = F.softplus(dt_raw.to(torch.float32)
                     + params["dt_bias"].to(torch.float32))      # (B, S, H)
     a = -torch.exp(params["a_log"].to(torch.float32))            # (H,)
     log_f = dt * a[None, None, :]
-    k = bmat[:, :, None, :].expand(b, s, heads, state_dim)
-    q = cmat[:, :, None, :].expand(b, s, heads, state_dim)
+    k = _per_head(conv_bc[..., :gn], groups, heads)
+    q = _per_head(conv_bc[..., gn:], groups, heads)
     return q, k, xi, log_f, dt, z, new_hist
 
 
 def _mamba_out(params: Params, y: Tensor, v: Tensor, z: Tensor,
-               compute_dtype: torch.dtype) -> Tensor:
+               compute_dtype: torch.dtype, groups: int = 1,
+               group_norm_eps: Optional[float] = None) -> Tensor:
     """The mixer's output from the recurrence's ``y (B, S, H, dv)``: the D
-    skip, the norm gated by ``silu(z)``, the down projection."""
+    skip, then RMSNorm gated by ``silu(z)`` (``group_norm_eps`` None: norm
+    then gate, as zamba2's; else gate, then RMSNorm over each of
+    ``groups`` channel groups with that eps, Mamba2's
+    ``norm_before_gate=False``), then the down projection."""
     b, s = y.shape[:2]
     y = y + v * params["d_skip"].to(compute_dtype)[None, None, :, None]
-    y = layers.rms_norm(y.reshape(b, s, -1), params["out_norm"]) * F.silu(z)
+    y = y.reshape(b, s, -1)
+    if group_norm_eps is None:
+        y = layers.rms_norm(y, params["out_norm"]) * F.silu(z)
+    else:
+        g = y.to(torch.float32) * F.silu(z.to(torch.float32))
+        y = layers.rms_norm(g.reshape(b, s, groups, -1),
+                            params["out_norm"].reshape(groups, -1),
+                            group_norm_eps).reshape(b, s, -1).to(y.dtype)
     return _mm(y, params["wd"].to(compute_dtype))
 
 
 def mamba2_block(params: Params, x: Tensor, heads: int, state_dim: int,
-                 chunk: int, compute_dtype: torch.dtype) -> Tensor:
+                 chunk: int, compute_dtype: torch.dtype, groups: int = 1,
+                 group_norm_eps: Optional[float] = None) -> Tensor:
     """Sequence-mode Mamba2 mixer (the pre-norm residual is the caller's)."""
-    q, k, v, log_f, dt, z, _ = _mamba_core_inputs(params, x, heads,
-                                                  state_dim, compute_dtype)
+    q, k, v, log_f, dt, z, _ = _mamba_core_inputs(
+        params, x, heads, state_dim, compute_dtype, groups=groups)
     y, _ = glr_chunked(q, k, v, log_f, dt, chunk=chunk, normalize=False)
-    return _mamba_out(params, y, v, z, compute_dtype)
+    return _mamba_out(params, y, v, z, compute_dtype, groups, group_norm_eps)
 
 
 def mamba2_decode(params: Params, x: Tensor, state: MambaState, heads: int,
-                  state_dim: int, compute_dtype: torch.dtype
+                  state_dim: int, compute_dtype: torch.dtype,
+                  groups: int = 1, group_norm_eps: Optional[float] = None
                   ) -> Tuple[Tensor, MambaState]:
     """``x (B, 1, d)`` -> ``(B, 1, d)`` and the updated state; the output is
     f32 from an f32 conv history, the compute dtype from one in it."""
     q, k, v, log_f, dt, z, hist = _mamba_core_inputs(
-        params, x, heads, state_dim, compute_dtype, conv_history=state.conv)
+        params, x, heads, state_dim, compute_dtype, conv_history=state.conv,
+        groups=groups)
     y, ssm = glr_decode_step(q[:, 0], k[:, 0], v[:, 0], log_f[:, 0],
                              dt[:, 0], state.ssm, normalize=False)
-    return (_mamba_out(params, y[:, None], v, z, compute_dtype),
+    return (_mamba_out(params, y[:, None], v, z, compute_dtype, groups,
+                       group_norm_eps),
             MambaState(ssm=ssm, conv=hist))
 
 
 def mamba_state_shape(b: int, d: int, expand: int, state_dim: int,
-                      heads: int, conv_width: int, device: torch.device
+                      heads: int, conv_width: int, device: torch.device,
+                      d_inner: Optional[int] = None, groups: int = 1
                       ) -> MambaState:
     """A zeroed state: the recurrence and the conv history in f32."""
-    d_inner = d * expand
+    d_inner = d * expand if d_inner is None else d_inner
     headdim = d_inner // heads
     f32 = torch.float32
     return MambaState(
@@ -506,5 +535,6 @@ def mamba_state_shape(b: int, d: int, expand: int, state_dim: int,
             s=torch.zeros((b, heads, state_dim, headdim), dtype=f32,
                           device=device),
             n=torch.zeros((b, heads, state_dim), dtype=f32, device=device)),
-        conv=torch.zeros((b, conv_width - 1, d_inner + 2 * state_dim),
+        conv=torch.zeros((b, conv_width - 1,
+                          d_inner + 2 * groups * state_dim),
                          dtype=f32, device=device))

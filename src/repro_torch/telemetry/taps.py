@@ -1,8 +1,9 @@
 """Activation taps: name tap points and build the tap-emitting decode step
 (port of ``repro.telemetry.taps``).
 
-A tap point is ``(model, cycle index)``: the residual stream after that
-cycle, pooled over the token axis with ``probes.pool_hidden``.
+A tap point is ``(model, cycle index)``, or ``(model, layer index)`` for a
+config with a ``layer_pattern``: the residual stream after that cycle or
+layer, pooled over the token axis with ``probes.pool_hidden``.
 :func:`tapped_decode_fn` returns the decode step that also yields the pooled
 features and a per-lane probe target from the same step's logits, so one
 step gives a ``(features, target)`` pair per active lane and the raw
@@ -37,7 +38,8 @@ class TapConfig:
     Attributes:
       model: routing label; the bridge keys tenant slots by ``(model,
         layer)``, so engines of different models can share one gateway.
-      layers: cycle indices to tap (``()`` = every cycle).
+      layers: cycle indices to tap, or a pattern config's layers (``()`` =
+        every one).
       pool: token-axis pooling (``probes.pool_hidden``); one decode token
         makes ``mean`` and ``last`` coincide.
       target: scalar probe target from the step's logits (``entropy |
@@ -57,9 +59,10 @@ class TapConfig:
                 f"unknown target {self.target!r}; use {_TARGETS}")
 
     def resolve_layers(self, cfg: ModelConfig) -> Tuple[int, ...]:
-        """Concrete tap cycles for ``cfg`` (``()`` means all cycles)."""
+        """Concrete tap cycles (a pattern config's layers) for ``cfg``
+        (``()`` means all)."""
         if not self.layers:
-            return tuple(range(cfg.num_cycles))
+            return tuple(range(cfg.tap_points))
         return model._check_tap_layers(self.layers, cfg)
 
 

@@ -27,9 +27,14 @@ after and counts it (``summary()["dropped"]``). While it is on, a garbage
 collection is a span too (``host.gc``), so the host's time outside every
 other span has a name.
 
+**Tallies.** ``tally(name, row, rows, counts)`` adds a device tensor of
+counts to row ``row`` of a ``(rows, n)`` int64 tensor kept on that device,
+in place: it never waits for the card. :func:`tallies` hands the tensors
+out; reading one waits, so read it once, after the window.
+
 **Read-out.** :func:`records` (one structured array), :func:`counters`,
-:func:`summary` (count, total, p50 and p99 per span name, the counters and
-the drops; JSON-safe), :func:`reset`.
+:func:`tallies`, :func:`summary` (count, total, p50 and p99 per span name,
+the counters and the drops; JSON-safe), :func:`reset`.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ _lock = threading.Lock()  # names, counters, reset; never taken by a collection
 _names: List[str] = []
 _ids: Dict[str, int] = {}
 _counters: Dict[str, int] = {}
+_tallies: Dict[str, torch.Tensor] = {}
 _SLOTS = 1 << 62  # slot numbers a buffer hands out: past its end, a drop
 
 
@@ -195,6 +201,27 @@ def add(name: str, n: int) -> None:
         _counters[name] = _counters.get(name, 0) + n
 
 
+def tally(name: str, row: int, rows: int, counts: torch.Tensor) -> None:
+    """Add ``counts`` (``(n,)``, on any device) to row ``row`` of tally
+    ``name``, a ``(rows, n)`` int64 tensor made on ``counts``' device at
+    first use; in place, with no wait for the device."""
+    if not (_enabled or _profiling()):
+        return
+    t = _tallies.get(name)
+    if t is None:
+        with _lock:
+            t = _tallies.setdefault(name, torch.zeros(
+                (rows, counts.numel()), dtype=torch.int64,
+                device=counts.device))
+    t[row].add_(counts.to(torch.int64))
+
+
+def tallies() -> Dict[str, torch.Tensor]:
+    """The tallies by name, on their devices (reading one waits for it)."""
+    with _lock:
+        return dict(_tallies)
+
+
 def _on_gc(phase: str, info: dict) -> None:
     # A collection runs in whichever thread allocates, also inside this
     # module's ``with _lock:`` blocks: its span takes no lock ("host.gc" is
@@ -266,9 +293,10 @@ def summary() -> dict:
 
 
 def reset() -> None:
-    """Forget every record, counter and drop. Spans open across a reset
+    """Forget every record, counter, tally and drop. Spans open across a reset
     close into the old buffer."""
     global _cols, _buf
     with _lock:
         _cols, _buf = _buffers()
         _counters.clear()
+        _tallies.clear()

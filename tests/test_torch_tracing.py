@@ -9,7 +9,9 @@ copies to the device and writes into its staging, and serve exactly what
 they serve with it off; a
 bridge flush nests its stages and sends the same rows. Under
 ``torch.profiler`` the tracer is on by itself, and its stamps lie inside
-the profiler's own host ranges: one clock.
+the profiler's own host ranges: one clock. A dropless MoE layer records
+its four stages, its routed rows and, on the device, a tally of rows per
+(layer, expert) that equals a count of its routing.
 """
 
 import gc
@@ -25,7 +27,7 @@ from repro_torch import tracing
 from repro_torch.configs import registry
 from repro_torch.core import lsh, probes
 from repro_torch.device import generator
-from repro_torch.models import model
+from repro_torch.models import model, moe
 from repro_torch.serve import storm_gateway as port_gw
 from repro_torch.serve.storm_gateway import (
     FitRequest, IngestRequest, QueryRequest, StormGateway, report_key,
@@ -446,3 +448,63 @@ def test_spans_share_the_profilers_clock(hashes):
         lo, hi = ranges[k]
         assert lo <= r["start_ns"] <= r["end_ns"] <= hi
     assert not names & set(recs["name"])
+
+
+# -- the dropless MoE ---------------------------------------------------------
+
+MOE_CFG = registry.get_config("nemotron-3-nano-30b-a3b", smoke=True)
+MOE_SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def _moe_layer(seed=0, layer=3):
+    """One dropless layer of the smoke config over 2 x 12 tokens: its
+    output and its chosen experts."""
+    c = MOE_CFG
+    gen = torch.Generator().manual_seed(seed)
+    p = moe.init_dropless(gen, c.d_model, c.d_ff, c.num_experts,
+                          c.moe_shared_d_ff, torch.float32)
+    p["router_bias"] = 0.1 * torch.randn(c.num_experts, generator=gen)
+    x = torch.randn((2, 12, c.d_model), generator=gen)
+    with torch.no_grad(), moe.record_choices() as got:
+        y = moe.dropless_moe(p, x, experts_per_token=c.experts_per_token,
+                             routed_scale=c.moe_routed_scale,
+                             compute_dtype=torch.float32, layer=layer,
+                             num_layers=c.num_layers)
+    return y, got[0]
+
+
+def test_moe_stages_and_rows_recorded_while_on():
+    tracing.enable()
+    _moe_layer()
+    recs = tracing.records()
+    assert list(recs["name"]) == list(MOE_SPANS)
+    assert (recs["parent"] == -1).all()
+    assert (recs["start_ns"][1:] >= recs["end_ns"][:-1]).all()
+    assert tracing.counters() == {
+        "moe.routed_rows": 2 * 12 * MOE_CFG.experts_per_token}
+
+
+def test_moe_off_records_nothing_and_computes_the_same():
+    off, _ = _moe_layer()
+    assert tracing.records().size == 0
+    assert tracing.counters() == {} and tracing.tallies() == {}
+    tracing.enable()
+    on, _ = _moe_layer()
+    assert torch.equal(on, off)
+
+
+def test_moe_tally_matches_a_bincount_of_the_routing():
+    tracing.enable()
+    _, a = _moe_layer(seed=0, layer=3)
+    _, b = _moe_layer(seed=1, layer=3)
+    _, c = _moe_layer(seed=2, layer=6)
+    tally = tracing.tallies()["moe.expert_rows"]
+    e = MOE_CFG.num_experts
+    assert tally.shape == (MOE_CFG.num_layers, e)
+    assert tally.dtype == torch.int64
+    count = lambda idx: torch.bincount(idx.flatten(), minlength=e)
+    assert torch.equal(tally[3], count(a) + count(b))
+    assert torch.equal(tally[6], count(c))
+    assert int(tally.sum()) == 3 * 2 * 12 * MOE_CFG.experts_per_token
+    tracing.reset()
+    assert tracing.tallies() == {}
